@@ -1,0 +1,24 @@
+"""Device selection shared by the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless one is named.
+
+    With ``device=None`` and no CUDA device present this raises rather than
+    carrying on quietly on the CPU; the CPU is used only when asked for.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
