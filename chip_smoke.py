@@ -8,33 +8,45 @@ Phases, each of which fails the run (exit code 1) on error:
 1. device: the card's name and power limit (``nvidia-smi``); TF32 is
    switched off for float32 matrix products and convolutions, so float32
    comparisons are float32;
-2. build: compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   into ``build/torch_kernels`` and prints the build time and each kernel's
+2. build: compiles the three CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel) into
+   ``build/torch_kernels`` and prints the build time and each kernel's
    register and shared-memory use;
 3. kernels: every kernel against its plain PyTorch version on the same
    inputs on the card (max |d| <= 2e-5 at float32, <= 3e-2 at bfloat16, the
-   tolerances of tests/test_kernels.py); at granite-3-2b's serving shapes,
-   the median time of the kernel, of its plain version and of one
-   ``scaled_dot_product_attention`` call (a yardstick the port never
-   calls), beside the least time the card needs for the work;
-4. reduced engine: reduced granite-3-2b at float32 served on the GPU (the
-   kernels) and on the CPU (the plain versions) under three schedulers with
-   a pool small enough to force swaps; completions, clock and counters must
-   be equal;
-5. full width: granite-3-2b at bfloat16 (40 layers, d_model 2048, random
+   tolerances of tests/test_kernels.py; the chunkwise mLSTM on its output
+   and its final state, from the empty and from a given state, at any
+   length); at the serving shapes (granite-3-2b for attention, xlstm-350m's
+   prefill for the mLSTM), the median time of the kernel, of its plain
+   version and, for attention, of one ``scaled_dot_product_attention`` call
+   (a yardstick the port never calls), beside the least time the card needs
+   for the work;
+4. reduced engines: reduced granite-3-2b and reduced xlstm-350m at float32
+   served on the GPU (the kernels) and on the CPU (the plain versions)
+   under three schedulers with a pool small enough to force swaps;
+   completions, clock and counters must be equal, and for xlstm the
+   sampled tokens too;
+5. full width, granite-3-2b at bfloat16 (40 layers, d_model 2048, random
    weights from a seed) served by ``ServeEngine`` (max_batch 8, cache_len
    512, pool 4096 tokens, justitia) for seeded agents; every agent
    completes with its token budget, paged decode launched 40 times per
-   decode step and flash prefill launched at all.
+   decode step and flash prefill launched at all;
+6. full width, xlstm-350m at bfloat16 (12 mLSTM/sLSTM pairs, d_model 1024,
+   4 heads of 256) served the same way; every agent completes with its
+   token budget and the mLSTM kernel is launched 12 times per prefill; a
+   profiled decode step and a profiled prefill that splits the mLSTM
+   kernel's time from the sLSTM loop's.
 
-The last lines are the card's name and power limit, one ``{"kernels": ...}``
-JSON line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
-device, or without the repository beside it, the script exits non-zero and
-prints no result.
+Each full-width phase zeroes the launch counts just before it serves and
+reads them just after.  The last lines are the card's name and power
+limit, one ``{"kernels": ...}`` JSON line and, last, ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or without the repository
+beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -48,6 +60,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 GRANITE = dict(n_layers=40, nh=32, n_kv=8, hd=64)
+#: xlstm-350m's prefill of one prompt at the longest cache
+XLSTM = dict(b=1, nh=4, s=512, hd=256)
 
 
 def log(msg: str) -> None:
@@ -263,6 +277,89 @@ def time_flash(ops, ref, torch, gen):
                 shape=f"B={b} S={s} nh={nh} n_kv={n_kv} hd={hd} causal bf16")
 
 
+def _mlstm_inputs(torch, gen, b, h, s, hd, dtype, state: bool):
+    """q, k, v as transposed views of (B, S, H, hd) tensors and the gates
+    as views of (B, S, H) float32 tensors, as the model passes them."""
+    q, k, v = ((torch.randn(b, s, h, hd, generator=gen, device="cuda") * 0.5)
+               .to(dtype).transpose(1, 2) for _ in range(3))
+    i_raw = (torch.randn(b, s, h, generator=gen, device="cuda") * 0.5
+             ).transpose(1, 2)
+    log_f = torch.nn.functional.logsigmoid(
+        torch.randn(b, s, h, generator=gen, device="cuda") * 0.5 + 2.0
+    ).transpose(1, 2)
+    st = None
+    if state:
+        st = ((torch.randn(b, h, hd, hd, generator=gen, device="cuda") * 0.1),
+              (torch.randn(b, h, hd, generator=gen, device="cuda") * 0.1),
+              torch.randn(b, h, generator=gen, device="cuda"))
+    return q, k, v, i_raw, log_f, st
+
+
+def check_mlstm(ops, ref, torch, gen):
+    """The chunkwise mLSTM against its plain version on its output and its
+    final (C, n, m); returns the max |d| at xlstm-350m's prefill shape in
+    bfloat16."""
+    x = XLSTM
+    cases = [  # b, h, s, hd, chunk, with a state
+        (2, 2, 64, 32, 16, False),     # the shapes of tests/test_kernels.py
+        (1, 3, 128, 64, 32, False),
+        (1, 1, 96, 128, 32, False),
+        (2, 1, 64, 256, 64, False),
+        (1, 4, 100, 256, 64, False),   # hd 256, ragged last chunks
+        (1, 4, 257, 256, 64, False),
+        (1, 4, 257, 256, 64, True),    # from a given state
+        (2, 2, 37, 32, 64, True),
+        (x["b"], x["nh"], x["s"], x["hd"], 64, False),   # xlstm-350m
+    ]
+    xlstm_err = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for b, h, s, hd, chunk, with_state in cases:
+            args = _mlstm_inputs(torch, gen, b, h, s, hd, dtype, with_state)
+            got, got_st = ops.mlstm_chunk(*args, chunk=chunk)
+            want, want_st = ref.mlstm_chunk_ref(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            errs = [(g.float() - w.float()).abs().max().item()
+                    for g, w in zip((got, *got_st), (want, *want_st))]
+            log(f"  mlstm {name:8s} b={b} h={h} S={s} hd={hd} chunk={chunk} "
+                f"state={'given' if with_state else 'empty'} max|d| "
+                f"h={errs[0]:.3g} C={errs[1]:.3g} n={errs[2]:.3g} "
+                f"m={errs[3]:.3g}")
+            if not max(errs) <= TOL[name]:
+                raise AssertionError(f"mlstm_chunk differs by {max(errs)}")
+            if (b, h, s, hd) == (x["b"], x["nh"], x["s"], x["hd"]) and \
+                    dtype == torch.bfloat16:
+                xlstm_err = errs[0]
+    return xlstm_err
+
+
+def time_mlstm(ops, ref, torch, gen):
+    """xlstm-350m's prefill shape: one prompt of 512 tokens, 4 heads of
+    256, bf16 q/k/v, float32 gates, from the empty state as prefill starts;
+    one layer's call, 16 input sets rotating to keep L2 cold."""
+    x = XLSTM
+    b, h, s, hd = x["b"], x["nh"], x["s"], x["hd"]
+    sets = [_mlstm_inputs(torch, gen, b, h, s, hd, torch.bfloat16,
+                          False)[:5] for _ in range(16)]
+    kernel = median_ms(lambda *a: ops.mlstm_chunk(*a), sets)
+    plain_t = median_ms(lambda *a: ref.mlstm_chunk_ref(*a), sets, iters=10)
+    chunk = 64
+    lens = [min(chunk, s - t0) for t0 in range(0, s, chunk)]
+    # inputs read once (q, k, v bf16; gates f32), h written in bf16 and the
+    # final state in f32
+    n_bytes = (3 * 2 + 2) * b * h * s * hd + 2 * 4 * b * h * s + 4 * b * h * (
+        hd * hd + hd + 1)
+    # per (b, h): causal q.k^T and (q.k^T * w).v within each chunk, q.C0
+    # and the C update per token, q.n0 and the n update per token
+    flops = b * h * (2 * 2 * hd * sum(n * (n + 1) // 2 for n in lens)
+                     + 2 * 2 * s * hd * hd + 2 * 2 * s * hd)
+    bound, by = bound_ms(n_bytes, flops, "bfloat16")
+    return dict(ms=kernel, plain_ms=plain_t, library_ms=None,
+                bound_ms=bound, bound_by=by,
+                shape=f"B={b} H={h} S={s} hd={hd} chunk={chunk} bf16 q/k/v, "
+                      "f32 gates and state, empty state in")
+
+
 # ---------------------------------------------------------- phases 4 and 5
 
 
@@ -296,11 +393,12 @@ class TokenLog:
         self.tokens.setdefault(aid, []).append(int(tok))
 
 
-def reduced_engine(torch, pkg):
-    """Reduced granite at f32 on the GPU (kernels) and the CPU (plain)."""
+def reduced_engine(torch, pkg, arch: str, **over):
+    """A reduced config at f32 on the GPU (kernels) and the CPU (plain).
+    For the ssm family the sampled tokens must be equal too."""
     import numpy as np
 
-    cfg = pkg["get_config"]("granite-3-2b").reduced()
+    cfg = pkg["get_config"](arch).reduced(**over)
     cpu_model = pkg["Model"](cfg, device="cpu")
     cpu_params = cpu_model.init(seed=0)
     gpu_model = pkg["Model"](cfg, device="cuda", debug_checks=True)
@@ -339,16 +437,26 @@ def reduced_engine(torch, pkg):
         flat_c = np.concatenate([ct[a] for a in sorted(ct)])
         match = float(np.mean(flat_g == flat_c)) if len(flat_g) == len(
             flat_c) else 0.0
-        log(f"  {sched:9s} gpu={g} cpu_equal={g == c} "
+        log(f"  {arch} {sched:9s} gpu={g} cpu_equal={g == c} "
             f"token_match={match:.4f}")
         if g != c:
             raise AssertionError(f"GPU and CPU engines differ: {g} vs {c}")
         if g["swaps"] == 0:
             raise AssertionError("pool 256 did not force a swap")
+        if cfg.kind == "ssm" and match != 1.0:
+            raise AssertionError(f"sampled tokens differ: match {match}")
 
 
-def full_width(torch, pkg, ops):
-    cfg = pkg["get_config"]("granite-3-2b")
+def full_width(torch, pkg, ops, arch: str):
+    """Serve ``arch`` at full width from random weights; returns the launch
+    counts of the family's kernels over the serving run."""
+    cfg = pkg["get_config"](arch)
+    ssm = cfg.kind == "ssm"
+    # an earlier phase's engine is freed only by the cycle collector (its
+    # timed methods refer back to it): collect it, so that the peak memory
+    # below is this phase's own
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = pkg["Model"](cfg, device="cuda")
     params = model.init(seed=0)
@@ -391,7 +499,9 @@ def full_width(torch, pkg, ops):
     done = eng.run_until_idle()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    paged, flash = ops.paged_gqa_decode.launches, ops.flash_prefill.launches
+    launches = {"paged_attention": ops.paged_gqa_decode.launches,
+                "flash_attention": ops.flash_prefill.launches,
+                "mlstm_chunk": ops.mlstm_chunk.launches}
     m = eng.metrics
     peak = torch.cuda.max_memory_allocated()
     log(f"  agents={len(agents)} completed={len(done)} now={eng.now} "
@@ -403,10 +513,17 @@ def full_width(torch, pkg, ops):
         f"decode iterations/s={m['decode_steps'] / wall['decode']:.2f} "
         f"tokens/s={m['tokens'] / total:.2f} "
         f"peak memory={peak / 2**30:.3f} GiB")
-    log(f"  launches: paged_gqa_decode={paged} "
-        f"(= {cfg.n_layers} x {m['decode_steps']} decode steps: "
-        f"{paged == cfg.n_layers * m['decode_steps']}) "
-        f"flash_prefill={flash}")
+    if ssm:
+        n_pairs = cfg.n_layers // cfg.slstm_every
+        want = {"mlstm_chunk": n_pairs * m["prefills"]}
+        log(f"  launches: {launches} (mlstm_chunk = {n_pairs} pairs x "
+            f"{m['prefills']} prefills: "
+            f"{launches['mlstm_chunk'] == want['mlstm_chunk']})")
+    else:
+        want = {"paged_attention": cfg.n_layers * m["decode_steps"]}
+        log(f"  launches: {launches} (paged_gqa_decode = {cfg.n_layers} "
+            f"layers x {m['decode_steps']} decode steps: "
+            f"{launches['paged_attention'] == want['paged_attention']})")
     if set(done) != set(budgets):
         raise AssertionError(f"agents {set(budgets) - set(done)} did not "
                              "complete")
@@ -417,10 +534,11 @@ def full_width(torch, pkg, ops):
                                  f"{budget}")
         if not all(0 <= t < cfg.vocab for t in toks.tokens[aid]):
             raise AssertionError(f"agent {aid}: token id out of range")
-    if paged != cfg.n_layers * m["decode_steps"]:
-        raise AssertionError("paged decode did not run once per layer and "
-                             "decode step")
-    if flash <= 0:
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"not {n}")
+    if not ssm and launches["flash_attention"] <= 0:
         raise AssertionError("flash prefill never launched")
     # one more decode step on the final cache: finite logits of the
     # expected shape
@@ -431,14 +549,34 @@ def full_width(torch, pkg, ops):
             torch.isfinite(logits.float()).all()):
         raise AssertionError("full-width logits are not finite")
     profile_decode(torch, model, params, eng)
-    return {"paged_attention": paged, "flash_attention": flash}
+    if ssm:
+        profile_prefill(torch, model, params)
+        return {"mlstm_chunk": launches["mlstm_chunk"]}
+    return {k: launches[k] for k in ("paged_attention", "flash_attention")}
+
+
+def _device_rows(prof, per: int):
+    """(device us per ``per``, calls per ``per``, name) of every kernel in
+    a ``torch.profiler`` run; operator rows are left out, as they repeat
+    their kernels' time."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0)
+        if dev > 0:
+            rows.append((dev / per, ev.count // per, ev.key))
+    return rows
 
 
 def profile_decode(torch, model, params, eng, steps: int = 4):
     """Where a full-width decode step's time goes: host wall per step, the
     device's busy time (sum of kernel times) and the kernels that take most
     of it, from ``torch.profiler``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     toks = eng._d_state[0][:, None].clone()
@@ -450,15 +588,7 @@ def profile_decode(torch, model, params, eng, steps: int = 4):
             model.decode(params, eng.cache, toks, pos)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) / steps * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue   # kernels only: operator rows repeat their time
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0)
-        if dev > 0:
-            rows.append((dev / steps, ev.count // steps, ev.key))
+    rows = _device_rows(prof, steps)
     busy = sum(r[0] for r in rows)
     log(f"  profile: decode step wall {wall_us:.0f} us (profiler on), "
         f"device busy {busy:.0f} us, idle share "
@@ -466,6 +596,69 @@ def profile_decode(torch, model, params, eng, steps: int = 4):
         "  profile: the profiler recorded no device time (not measured)")
     for dev, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {dev:9.1f} us/step {count:5d} calls/step  {key[:70]}")
+
+
+def profile_prefill(torch, model, params, s: int = 256):
+    """Where a full-width xLSTM prefill of one ``s``-token prompt goes: the
+    host wall of its mLSTM and sLSTM calls (each ended by a synchronize),
+    then, from ``torch.profiler``, the device time of the mLSTM kernel
+    against all device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, model.cfg.vocab, (1, s), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    orig = {"mlstm": ssm.mlstm_forward_chunked, "slstm": ssm.slstm_forward}
+    wall = dict.fromkeys(orig, 0.0)
+
+    def timed(key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[key](*args, **kw)
+            torch.cuda.synchronize()
+            wall[key] += time.perf_counter() - t
+            return out
+        return run
+
+    ssm.mlstm_forward_chunked, ssm.slstm_forward = (timed("mlstm"),
+                                                    timed("slstm"))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": toks}, cache_len=512)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        ssm.mlstm_forward_chunked = orig["mlstm"]
+        ssm.slstm_forward = orig["slstm"]
+    log(f"  prefill of {s} tokens: wall {total * 1e3:.1f} ms; mLSTM calls "
+        f"{wall['mlstm'] * 1e3:.1f} ms ({wall['mlstm'] / total:.3f}), "
+        f"sLSTM loops {wall['slstm'] * 1e3:.1f} ms "
+        f"({wall['slstm'] / total:.3f}), the rest "
+        f"{(total - wall['mlstm'] - wall['slstm']) * 1e3:.1f} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": toks}, cache_len=512)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof, 1)
+    busy = sum(r[0] for r in rows)
+    mlstm = [r for r in rows if "mlstm_chunk" in r[2]]
+    if not busy:
+        log("  profile: the profiler recorded no device time (not measured)")
+        return
+    log(f"  profile: prefill wall {wall_us:.0f} us (profiler on), device "
+        f"busy {busy:.0f} us, idle share {1 - busy / wall_us:.3f}; "
+        f"mlstm_chunk kernel {sum(r[0] for r in mlstm):.0f} us in "
+        f"{sum(r[1] for r in mlstm)} calls, the other kernels "
+        f"{busy - sum(r[0] for r in mlstm):.0f} us in "
+        f"{sum(r[1] for r in rows) - sum(r[1] for r in mlstm)} calls")
+    for dev, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"    {dev:9.1f} us {count:6d} calls  {key[:70]}")
 
 
 def _leaves(tree):
@@ -500,6 +693,10 @@ def main() -> int:
     )
     from repro_torch.engine import EngineAgent, ServeEngine
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import smem_bytes as flash_smem
+    from repro_torch.kernels.mlstm_chunk import smem_bytes as mlstm_smem
+    from repro_torch.kernels.mlstm_chunk import tile_cols
+    from repro_torch.kernels.paged_attention import smem_bytes as paged_smem
     from repro_torch.models import Model
 
     pkg = dict(get_config=get_config, InferenceSpec=InferenceSpec,
@@ -523,30 +720,47 @@ def main() -> int:
         for line in path.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {path.stem}: {line.strip()}")
+    g, hd = GRANITE, XLSTM["hd"]
+    qpk = g["nh"] // g["n_kv"]
+    log(f"  dynamic shared memory per block: paged_attention "
+        f"{paged_smem(qpk, g['hd'])} bytes (qpk {qpk}, hd {g['hd']}), "
+        f"flash_attention {flash_smem(g['hd'])} bytes (hd {g['hd']}), "
+        f"mlstm_chunk {mlstm_smem(hd)} bytes (hd {hd}; "
+        f"{hd // tile_cols(hd)} blocks per sequence and head)")
 
     log("== 3. kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = {"paged_attention": check_paged(ops, ref, torch, gen),
-           "flash_attention": check_flash(ops, ref, torch, gen)}
+           "flash_attention": check_flash(ops, ref, torch, gen),
+           "mlstm_chunk": check_mlstm(ops, ref, torch, gen)}
     timing = {"paged_attention": time_paged(ops, ref, torch, gen),
-              "flash_attention": time_flash(ops, ref, torch, gen)}
+              "flash_attention": time_flash(ops, ref, torch, gen),
+              "mlstm_chunk": time_mlstm(ops, ref, torch, gen)}
     for name, t in timing.items():
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
         log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+            f"{t['plain_ms']:.4f} ms, library call {lib}, bound "
             f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
             f"(kernel at {t['bound_ms'] / t['ms']:.3%} of the bound)")
 
-    log("== 4. reduced engine, GPU (kernels) against CPU (plain)")
-    reduced_engine(torch, pkg)
+    log("== 4. reduced engines, GPU (kernels) against CPU (plain)")
+    reduced_engine(torch, pkg, "granite-3-2b")
+    reduced_engine(torch, pkg, "xlstm-350m", n_layers=4)
 
     log("== 5. full-width granite-3-2b")
-    launches = full_width(torch, pkg, ops)
+    launches = full_width(torch, pkg, ops, "granite-3-2b")
+
+    log("== 6. full-width xlstm-350m")
+    launches.update(full_width(torch, pkg, ops, "xlstm-350m"))
 
     sources = {
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:125"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:125"),
+        "mlstm_chunk": ("src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+                        "src/repro/kernels/mlstm_chunk.py:127"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -13,6 +13,7 @@ from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 
 _MODULES = {
     "granite-3-2b": "granite_3_2b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 ALL_ARCHS = list(_MODULES)

@@ -39,9 +39,12 @@ programs become PyTorch functions that update the cache in place:
 * **Batched bucketed prefill.**  One admission pass runs ONE multi-sequence
   prefill (padded to the group's 64-token bucket and a power-of-two batch,
   lens-masked, through ``Model.prefill_chunked``) and copies every admitted
-  slot's rows into the cache; padding rows are dropped.
-* **Slot-wise swaps + staging pool.**  Swap-out copies ONE slot's rows into
-  a host staging buffer drawn from a free pool; swap-in copies them back.
+  slot's rows into the cache; padding rows are dropped.  The recurrent ssm
+  family prefills one sequence at a time at its exact length instead, as
+  the JAX engine does: padding would run through its state.
+* **Slot-wise swaps + staging pool.**  Swap-out copies ONE slot's rows
+  (K/V rows, or the recurrent state of every ssm layer) into a host staging
+  buffer drawn from a free pool; swap-in copies them back.
 
 ``prefix_cache=True`` and ``fused_prefill=True`` are not ported yet: they
 raise ``NotImplementedError`` (they come with ``Model.prefill_slice`` and
@@ -105,7 +108,9 @@ def _prefill_write(model, cache_len: int, chunk: int, params, cache,
         params, {"tokens": tokens, "lens": lens},
         cache_len=cache_len, chunk=chunk,
     )
-    n_slots = cache["k"].shape[1]
+    # every cache leaf is (layers, slots, ...): attention K/V or recurrent
+    # state alike
+    n_slots = next(iter(cache.values())).shape[1]
     rows = [i for i, slot in enumerate(slots) if 0 <= slot < n_slots]
     if rows:
         dev = tokens.device
@@ -381,9 +386,10 @@ class ServeEngine:
     # -------------------------------------------------------------- warmup
 
     def warmup(self) -> None:
-        """Build the CUDA kernels before serving so the first admission does
-        not stall on the compiler (a no-op on the CPU, where the plain
-        versions run).  PyTorch runs eagerly: nothing else compiles."""
+        """Build the CUDA kernels (all three, in parallel) before serving
+        so the first admission does not stall on the compiler (a no-op on
+        the CPU, where the plain versions run).  PyTorch runs eagerly:
+        nothing else compiles."""
         if self.slot_req or self.busy:
             raise RuntimeError("warmup must run on an idle engine")
         if self.device.type == "cuda":

@@ -1,4 +1,8 @@
-"""CUDA attention kernels for Hopper (+ their plain PyTorch versions)."""
+"""CUDA kernels for Hopper (+ their plain PyTorch versions).
+
+The mLSTM wrapper is ``ops.mlstm_chunk``: it is not exported here, where
+its name would hide the launcher module ``kernels.mlstm_chunk``.
+"""
 
 from repro_torch.kernels.ops import (
     flash_prefill,
@@ -6,7 +10,11 @@ from repro_torch.kernels.ops import (
     paged_gqa_decode,
     reset_launch_counts,
 )
-from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref
+from repro_torch.kernels.ref import (
+    flash_attention_ref,
+    mlstm_chunk_ref,
+    paged_attention_ref,
+)
 
 __all__ = [
     "flash_prefill",
@@ -14,5 +22,6 @@ __all__ = [
     "paged_gqa_decode",
     "reset_launch_counts",
     "flash_attention_ref",
+    "mlstm_chunk_ref",
     "paged_attention_ref",
 ]

@@ -27,6 +27,15 @@ ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
+def smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one block, as ``launch`` in the source
+    sizes it: the q tile and its accumulator, a K tile with padded rows, a
+    V tile, the tile's probabilities and three vectors of the tile."""
+    tile = 64 if hd <= 128 else 32
+    return 4 * (2 * tile * hd + tile * (hd + 1) + tile * hd + tile * tile
+                + 3 * tile)
+
+
 def flash_attention(fn, q, k, v, *, window: int = 0):
     """Launch the kernel through ``fn`` (the loaded C entry point) on CUDA
     tensors; returns the (B, nh, S, hd) output as a transposed view of a

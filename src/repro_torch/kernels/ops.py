@@ -1,10 +1,11 @@
-"""Public wrappers around the CUDA attention kernels, and their build.
+"""Public wrappers around the CUDA kernels, and their build.
 
 Each wrapper takes its plain PyTorch version (``ref.py``) for tensors on the
 CPU, and only then.  For CUDA tensors it launches its kernel or raises;
 there is no fallback.  Each wrapper counts its launches in a plain integer
-attribute (``paged_gqa_decode.launches``, ``flash_prefill.launches``), so a
-run can show that its main path went through the kernels.
+attribute (``paged_gqa_decode.launches``, ``flash_prefill.launches``,
+``mlstm_chunk.launches``), so a run can show that its main path went
+through the kernels.
 
 The kernels are built at first use: every ``csrc/*.cu`` source is compiled
 by its own ``nvcc`` process (all started together) into a shared library
@@ -23,11 +24,17 @@ import subprocess
 from pathlib import Path
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mlstm_chunk as _mlstm
 from repro_torch.kernels import paged_attention as _paged
-from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref
+from repro_torch.kernels.ref import (
+    flash_attention_ref,
+    mlstm_chunk_ref,
+    paged_attention_ref,
+)
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-_KERNELS = {"paged_attention": _paged, "flash_attention": _flash}
+_KERNELS = {"paged_attention": _paged, "flash_attention": _flash,
+            "mlstm_chunk": _mlstm}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC"]
@@ -148,6 +155,42 @@ def flash_prefill(
 flash_prefill.launches = 0
 
 
+def mlstm_chunk(
+    q,        # (B, H, S, hd)
+    k,
+    v,
+    i_raw,    # (B, H, S)
+    log_f,    # (B, H, S)
+    state=None,   # (C (B,H,hd,hd), n (B,H,hd), m (B,H)) float32, or None
+    *,
+    chunk: int = _mlstm.MAX_CHUNK,
+):
+    """Chunkwise-parallel mLSTM from ``state`` (None: the empty state);
+    returns ``(h (B,H,S,hd) in q's dtype, (C, n, m))``.
+
+    Any S: unlike the Pallas kernel's contract, a chunk that does not
+    divide S is not refused; the last chunk is masked (see ``ref.py``).
+    ``chunk`` is at most the kernel's tile, ``MAX_CHUNK`` tokens, on every
+    device.
+    """
+    if not 1 <= chunk <= _mlstm.MAX_CHUNK:
+        raise ValueError(f"mlstm_chunk: chunk {chunk} is not in "
+                         f"[1, {_mlstm.MAX_CHUNK}]")
+    if q.device.type == "cpu":
+        return mlstm_chunk_ref(q, k, v, i_raw, log_f, state, chunk=chunk)
+    out = _mlstm.mlstm_chunk(
+        kernel_library()["mlstm_chunk"], q, k, v,
+        i_raw.float().contiguous(), log_f.float().contiguous(), state,
+        chunk=chunk,
+    )
+    mlstm_chunk.launches += 1
+    return out
+
+
+mlstm_chunk.launches = 0
+
+
 def reset_launch_counts() -> None:
     paged_gqa_decode.launches = 0
     flash_prefill.launches = 0
+    mlstm_chunk.launches = 0

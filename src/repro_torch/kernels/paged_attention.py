@@ -28,6 +28,15 @@ SYMBOL = "paged_attention_launch"
 ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
+def smem_bytes(qpk: int, hd: int) -> int:
+    """Dynamic shared memory of one block, as ``launch`` in the source
+    sizes it: q and the accumulator (qpk x hd), a K tile with padded rows,
+    a V tile, the tile's probabilities and three vectors of qpk."""
+    tile = 64 if hd <= 128 else 32
+    return 4 * (2 * qpk * hd + tile * (hd + 1) + tile * hd + qpk * tile
+                + 3 * qpk)
+
+
 def check_float_inputs(name: str, hd: int, *tensors) -> int:
     """Shared argument checks of the attention kernels; returns is_bf16."""
     dtype = tensors[0].dtype

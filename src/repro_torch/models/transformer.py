@@ -23,8 +23,15 @@ Attention runs through the CUDA kernels where the JAX engine ran plain jnp:
 * chunked prefill (``dense_block_chunk``, queries at an offset) stays on the
   plain ``attention_any``: no Pallas kernel computes it.
 
-Only the dense family is served in this slice: MoE, VLM, encoder-decoder,
-ssm, hybrid and ring (sliding-window smaller than the cache) layouts raise
+The ssm family (xLSTM) keeps the JAX layout too: ``params["xlstm_pairs"]``
+holds pair-stacked ``(n_pairs, ...)`` mLSTM/sLSTM leaves and the cache holds
+the recurrent state ``mlstm_c/n/m`` and ``slstm_c/n/h/m``, each
+``(n_pairs, B, ...)`` float32.  Its prefill runs the chunkwise mLSTM through
+the ``mlstm_chunk`` kernel (``models/ssm.py``); decode is the plain per-step
+recurrence.
+
+The dense and ssm families are served: MoE, VLM, encoder-decoder, hybrid
+and ring (sliding-window smaller than the cache) layouts raise
 ``NotImplementedError`` naming the slice that brings them.
 """
 
@@ -37,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flash_prefill, paged_gqa_decode
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     AttnDims,
@@ -54,6 +62,10 @@ DECODE_PAGE = 16
 #: prefill attention pads S to a multiple of this and uses it as the flash
 #: kernel's block size (the engine's prompt bucket is 64 tokens)
 PREFILL_BLOCK = 64
+#: the ssm family's cache leaves, in the order the xLSTM blocks return them
+#: (mLSTM C, n, m; sLSTM c, n, h, m)
+SSM_STATE_KEYS = ("mlstm_c", "mlstm_n", "mlstm_m",
+                  "slstm_c", "slstm_n", "slstm_h", "slstm_m")
 
 
 def _dtype(cfg: ModelConfig):
@@ -73,9 +85,9 @@ def _check_family(cfg: ModelConfig) -> None:
         raise _unsupported("the VLM family", "VLM")
     if cfg.kind == "encdec":
         raise _unsupported("the encoder-decoder family", "other-families")
-    if cfg.kind in ("ssm", "hybrid"):
-        raise _unsupported(f"the {cfg.kind} family", "other-families")
-    if cfg.kind != "dense":
+    if cfg.kind == "hybrid":
+        raise _unsupported("the hybrid family", "other-families")
+    if cfg.kind not in ("dense", "ssm"):
         raise ValueError(f"unknown kind {cfg.kind}")
 
 
@@ -261,6 +273,42 @@ def dense_block_decode(p, x, pos, k_cache, v_cache, kv_pos, cfg: ModelConfig,
     return x + gated_mlp(p["mlp"], h2), k_cache, v_cache, kv_pos
 
 
+# ===========================================================================
+# xLSTM pairs (the ssm family)
+# ===========================================================================
+
+
+def init_xlstm_pairs(gen: torch.Generator, cfg: ModelConfig, dtype, device):
+    """The pair-stacked mLSTM/sLSTM parameters (JAX:
+    ``vmap(_init_xlstm_pair)``); norms, gates and recurrent matrices stay
+    float32."""
+    lead = (cfg.n_layers // cfg.slstm_every,)
+    ones = torch.ones((*lead, cfg.d_model), dtype=torch.float32,
+                      device=device)
+    dims = (cfg.d_model, cfg.n_heads, cfg.head_dim, dtype, device, lead)
+    return {
+        "ln_m": ones,
+        "mlstm": ssm.init_mlstm(gen, *dims),
+        "ln_s": ones.clone(),
+        "slstm": ssm.init_slstm(gen, *dims),
+    }
+
+
+def xlstm_pair(lp, x, cfg: ModelConfig, m_state, s_state, *, decode: bool):
+    """rms_norm -> mLSTM -> residual -> rms_norm -> sLSTM -> residual.
+    Returns (x, the pair's seven state tensors in ``SSM_STATE_KEYS`` order)."""
+    hm = rms_norm(x, lp["ln_m"], cfg.norm_eps)
+    if decode:
+        y, m_state = ssm.mlstm_decode(lp["mlstm"], hm, m_state)
+    else:
+        y, m_state = ssm.mlstm_forward_chunked(lp["mlstm"], hm, m_state)
+    x = x + y
+    hs = rms_norm(x, lp["ln_s"], cfg.norm_eps)
+    slstm = ssm.slstm_decode if decode else ssm.slstm_forward
+    y2, s_state = slstm(lp["slstm"], hs, s_state)
+    return x + y2, (*m_state, *s_state)
+
+
 def _gather_last(x, lens):
     """x: (B,S,D); lens: (B,) true lengths -> (B,1,D) at position lens-1."""
     b = x.shape[0]
@@ -274,11 +322,11 @@ def _gather_last(x, lens):
 
 
 class Model:
-    """Serving entry points of the dense family on one device.
+    """Serving entry points of the dense and ssm families on one device.
 
     ``device=None`` means ``cuda`` and raises when there is none; tests pass
     ``device="cpu"``.  ``debug_checks=True`` asserts the slot-contiguity
-    precondition of paged decode after every decode step.
+    precondition of paged decode after every dense decode step.
     """
 
     def __init__(self, cfg: ModelConfig,
@@ -314,21 +362,28 @@ class Model:
                 torch.randn((cfg.max_position, cfg.d_model), generator=gen,
                             device=dev) * 0.02
             ).to(dtype)
-        params["blocks"] = init_dense_blocks(gen, cfg, dtype, dev)
+        if cfg.kind == "ssm":
+            params["xlstm_pairs"] = init_xlstm_pairs(gen, cfg, dtype, dev)
+        else:
+            params["blocks"] = init_dense_blocks(gen, cfg, dtype, dev)
         return params
 
     def layer_params(self, params) -> list:
-        """Per-layer views of the stacked ``params["blocks"]`` (kept while
-        the same parameter dict is passed in)."""
-        blocks = params["blocks"]
-        if self._views[0] is not blocks:
+        """Per-layer views of the stacked ``params["blocks"]`` (per-pair
+        views of ``params["xlstm_pairs"]`` for ssm), kept while the same
+        parameter dict is passed in."""
+        cfg = self.cfg
+        if cfg.kind == "ssm":
+            stack, n = params["xlstm_pairs"], cfg.n_layers // cfg.slstm_every
+        else:
+            stack, n = params["blocks"], cfg.n_layers
+        if self._views[0] is not stack:
             def index(tree, l):
                 if isinstance(tree, dict):
                     return {k: index(v, l) for k, v in tree.items()}
                 return tree[l]
 
-            self._views = (blocks,
-                           [index(blocks, l) for l in range(self.cfg.n_layers)])
+            self._views = (stack, [index(stack, l) for l in range(n)])
         return self._views[1]
 
     # ------------------------------------------------------------ embed
@@ -355,10 +410,26 @@ class Model:
         """Allocate an empty decode cache (kv_pos = -1 -> invalid)."""
         cfg = self.cfg
         _check_family(cfg)
+        dev = self.device
+        if cfg.kind == "ssm":
+            n_pairs = cfg.n_layers // cfg.slstm_every
+            nh, hd = cfg.n_heads, cfg.head_dim
+            f32 = dict(dtype=torch.float32, device=dev)
+
+            def z(*shape):
+                return torch.zeros((n_pairs, batch, *shape), **f32)
+
+            return {
+                "mlstm_c": z(nh, hd, hd), "mlstm_n": z(nh, hd),
+                "mlstm_m": torch.full((n_pairs, batch, nh), -1e30, **f32),
+                "slstm_c": z(nh, hd), "slstm_n": z(nh, hd),
+                "slstm_h": z(nh, hd),
+                "slstm_m": torch.full((n_pairs, batch, nh, hd), -1e30,
+                                      **f32),
+            }
         t = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
              else cache_len)
         shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.head_dim)
-        dev = self.device
         return {
             "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
             "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
@@ -384,6 +455,14 @@ class Model:
         cache = self.init_cache(params, b, cache_len)
         positions = torch.arange(s, device=dev)[None].expand(b, s)
         x = self._embed(params, tokens, positions)
+        if cfg.kind == "ssm":
+            # every row runs its whole S tokens (the engine prefills ssm
+            # prompts one at a time at their exact length)
+            for l, lp in enumerate(self.layer_params(params)):
+                x, states = xlstm_pair(lp, x, cfg, None, None, decode=False)
+                for key, st in zip(SSM_STATE_KEYS, states):
+                    cache[key][l] = st
+            return self._logits(params, _gather_last(x, lens)), cache
         ks, vs = [], []
         for lp in self.layer_params(params):
             x, (k, v, _) = dense_block_train(lp, x, positions, cfg,
@@ -467,6 +546,14 @@ class Model:
         cfg = self.cfg
         _check_family(cfg)
         x = self._embed(params, tokens, pos[:, None])
+        if cfg.kind == "ssm":
+            for l, lp in enumerate(self.layer_params(params)):
+                old = [cache[key][l] for key in SSM_STATE_KEYS]
+                x, states = xlstm_pair(lp, x, cfg, tuple(old[:3]),
+                                       tuple(old[3:]), decode=True)
+                for dst, st in zip(old, states):
+                    dst.copy_(st)
+            return self._logits(params, x), cache
         ring = bool(cfg.sliding_window) and (
             cache["k"].shape[2] == cfg.sliding_window
         )

@@ -1,5 +1,6 @@
 """The port's ``ServeEngine`` against the JAX ``ServeEngine`` on the same
-seeded agents with bridged parameters (reduced granite-3-2b, float32, CPU).
+seeded agents with bridged parameters (reduced granite-3-2b and reduced
+xlstm-350m, float32, CPU).
 
 Compared exactly: the fields of ``BENCH_engine.json``'s oracle
 (completions, clock, tokens, prefills, swaps, decode steps) and the full
@@ -54,8 +55,9 @@ def engines():
     }
 
 
-def synth_agents(agent_cls, seed, n, closed_loop=False):
-    """Seeded task-parallel agents: 1-2 stages x 1-2 inferences each."""
+def synth_agents(agent_cls, seed, n, closed_loop=False, lengths=None):
+    """Seeded task-parallel agents: 1-2 stages x 1-2 inferences each;
+    prompts of 8-39 tokens, or drawn from ``lengths``."""
     rng = np.random.default_rng(seed)
     agents = []
     for i in range(n):
@@ -63,7 +65,11 @@ def synth_agents(agent_cls, seed, n, closed_loop=False):
         for _ in range(1 + int(rng.integers(0, 2))):
             stage = []
             for _ in range(1 + int(rng.integers(0, 2))):
-                p, d = int(rng.integers(8, 40)), int(rng.integers(16, 48))
+                if lengths is None:
+                    p = int(rng.integers(8, 40))
+                else:
+                    p = int(lengths[rng.integers(len(lengths))])
+                d = int(rng.integers(16, 48))
                 stage.append((rng.integers(0, VOCAB, size=p), d))
                 specs.append(InferenceSpec(p, d))
             stages.append(stage)
@@ -105,7 +111,7 @@ class Recorder:
 
 
 def run_both(engines, sched, n_agents=6, seed=7, follow_ups=None,
-             closed_loop=False, **kw):
+             closed_loop=False, lengths=None, **kw):
     kw.setdefault("pool_tokens", 4096)
     kw.setdefault("max_batch", 4)
     kw.setdefault("cache_len", 96)
@@ -115,7 +121,8 @@ def run_both(engines, sched, n_agents=6, seed=7, follow_ups=None,
         eng = eng_cls(model, params, mk(sched, float(kw["pool_tokens"])),
                       listener=rec, **kw, **extra)
         rec.engine = eng
-        for a in synth_agents(agent_cls, seed, n_agents, closed_loop):
+        for a in synth_agents(agent_cls, seed, n_agents, closed_loop,
+                              lengths):
             eng.submit_agent(a)
         eng.run_until_idle()
         eng.alloc.check_invariants()
@@ -183,3 +190,43 @@ def test_unported_flags_raise(engines, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(model, params, mk("justitia", 4096.0), **{flag: True},
                     **extra)
+
+
+# ------------------------------------------------------------------- xLSTM
+
+#: prompt lengths of the xLSTM runs: each distinct length is one JAX
+#: compilation of the exact-length prefill; 37 and 100 are ragged in the
+#: port's 64-token mLSTM chunks
+XLSTM_LENGTHS = (37, 64, 100)
+
+
+@pytest.fixture(scope="module")
+def xlstm_engines():
+    over = dict(vocab=VOCAB, n_layers=4)
+    jm = JaxModel(get_config("xlstm-350m").reduced(**over))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = Model(torch_get_config("xlstm-350m").reduced(**over), device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    return {
+        "jax": (JaxEngine, JaxAgent, make_scheduler, jm, jp, {}),
+        "torch": (ServeEngine, EngineAgent, torch_make_scheduler, tm, tp,
+                  {"device": "cpu"}),
+    }
+
+
+@pytest.mark.parametrize("sched,pool", [
+    ("justitia", 4096),
+    ("vtc", 256),
+    ("vllm-fcfs", 4096),
+])
+def test_xlstm_engine_matches_jax(xlstm_engines, sched, pool):
+    """Recurrent state served one exact-length prefill at a time: equal
+    completions, clock, counters and event streams, every sampled token
+    equal; pool 256 swaps the state out to the host and back."""
+    jax_run, torch_run = run_both(xlstm_engines, sched, n_agents=5,
+                                  lengths=XLSTM_LENGTHS, pool_tokens=pool,
+                                  cache_len=160)
+    assert_same(jax_run, torch_run)
+    assert torch_run[1].tokens == jax_run[1].tokens
+    if pool == 256:
+        assert jax_run[0]["swaps"] > 0, "pool 256 must force swaps"

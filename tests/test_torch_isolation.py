@@ -19,10 +19,12 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
 MODULES = [
     "repro_torch",
     "repro_torch.configs",
+    "repro_torch.configs.xlstm_350m",
     "repro_torch.core",
     "repro_torch.engine",
     "repro_torch.kernels",
     "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.mlstm_chunk",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.paged_attention",
     "repro_torch.kernels.ref",
@@ -30,6 +32,7 @@ MODULES = [
     "repro_torch.models",
     "repro_torch.models.layers",
     "repro_torch.models.params",
+    "repro_torch.models.ssm",
     "repro_torch.models.transformer",
 ]
 

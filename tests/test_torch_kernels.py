@@ -1,11 +1,11 @@
-"""The port's attention kernels on the CPU: their plain versions against the
-JAX package's Pallas kernels run in interpret mode (as ``test_kernels.py``
-runs them), the wrappers' CPU dispatch and launch counters, the argument
-checks of the CUDA launchers, and the decode-through-pages wiring.
+"""The port's kernels on the CPU: their plain versions against the JAX
+package's Pallas kernels run in interpret mode (as ``test_kernels.py`` runs
+them), the wrappers' CPU dispatch and launch counters, the argument checks
+of the CUDA launchers, and the decode-through-pages wiring.
 
-Tolerance: 2e-5 absolute and relative at float32, the tolerance of
-``tests/test_kernels.py``.  The CUDA kernels themselves need the card:
-``chip_smoke.py`` holds them against these plain versions there.
+Tolerance: 2e-5 absolute and relative at float32 and 3e-2 at bfloat16, the
+tolerances of ``tests/test_kernels.py``.  The CUDA kernels themselves need
+the card: ``chip_smoke.py`` holds them against these plain versions there.
 """
 
 import jax.numpy as jnp
@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import mlstm_chunk_kernel
 from repro.kernels import ops as jops
 from repro.models.layers import gqa_attention as jax_gqa_attention
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.layers import gqa_attention
 from repro_torch.models.transformer import (
@@ -120,7 +122,7 @@ def test_flash_prefill_rejects_misaligned_seq():
                            block_k=64, interpret=True)
 
 
-@pytest.mark.parametrize("launcher", ["paged", "flash"])
+@pytest.mark.parametrize("launcher", ["paged", "flash", "mlstm"])
 def test_cuda_launchers_refuse_cpu_tensors(launcher):
     """The CUDA path never quietly runs on CPU tensors: the launchers check
     the device before touching the C entry point (which is never called
@@ -135,8 +137,11 @@ def test_cuda_launchers_refuse_cpu_tensors(launcher):
             paged_attention(no_call, q, pages, pages,
                             torch.zeros((1, 4), dtype=torch.int32),
                             torch.ones((1,), dtype=torch.int32))
-        else:
+        elif launcher == "flash":
             flash_attention(no_call, q, q, q)
+        else:
+            g = torch.zeros((1, 2, 2))
+            mlstm_chunk(no_call, q, q, q, g, g)
 
 
 @pytest.mark.parametrize("hd,dtype,exc,match", [
@@ -148,6 +153,72 @@ def test_cuda_launcher_argument_checks(hd, dtype, exc, match):
     q = torch.zeros((1, 2, 64, hd), dtype=dtype)
     with pytest.raises(exc, match=match):
         flash_attention(None, q, q, q)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,h,s,hd,chunk",
+    [
+        (2, 2, 64, 32, 16),
+        (1, 3, 128, 64, 32),
+        (1, 1, 96, 128, 32),     # non-power-of-two chunk count
+        (2, 1, 64, 256, 64),     # xlstm-350m head_dim, single chunk
+    ],
+)
+def test_mlstm_chunk_plain_matches_pallas(dtype, b, h, s, hd, chunk):
+    """The plain chunkwise mLSTM at the empty state against the Pallas
+    kernel, on the shapes of ``tests/test_kernels.py``."""
+    rng = np.random.default_rng(4)
+    q, k, v = (_np32(rng, b, h, s, hd) * 0.5 for _ in range(3))
+    i_raw = _np32(rng, b, h, s) * 0.5
+    log_f = -np.logaddexp(0.0, -(_np32(rng, b, h, s) * 0.5 + 2.0))
+    args = (q, k, v, i_raw, log_f.astype(np.float32))
+    want = mlstm_chunk_kernel(
+        *(jnp.asarray(a).astype(dtype) for a in args), chunk=chunk,
+        interpret=True)
+    got, (c, n, m) = ops.mlstm_chunk(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in args),
+        chunk=chunk)
+    assert got.dtype == getattr(torch, dtype)
+    assert (c.shape, n.shape, m.shape) == ((b, h, hd, hd), (b, h, hd), (b, h))
+    tol = TOL if dtype == "float32" else dict(atol=3e-2, rtol=3e-2)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+    assert ops.mlstm_chunk.launches == 0
+
+
+def test_mlstm_chunk_any_length_and_state():
+    """A chunk that does not divide S masks the last chunk: the output and
+    the state handed on equal those of one chunk per token and of running
+    the two halves of the sequence one after the other."""
+    b, h, s, hd = 1, 2, 50, 32
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(_np32(rng, b, h, s, hd)) for _ in range(3))
+    i_raw = torch.from_numpy(_np32(rng, b, h, s))
+    log_f = torch.nn.functional.logsigmoid(
+        torch.from_numpy(_np32(rng, b, h, s)) + 2.0)
+    whole, st = ops.mlstm_chunk(q, k, v, i_raw, log_f, chunk=16)
+    steps, st1 = ops.mlstm_chunk(q, k, v, i_raw, log_f, chunk=1)
+    np.testing.assert_allclose(whole.numpy(), steps.numpy(), **TOL)
+    cut = 23
+    head, mid = ops.mlstm_chunk(
+        *(x[:, :, :cut] for x in (q, k, v, i_raw, log_f)), chunk=16)
+    tail, st2 = ops.mlstm_chunk(
+        *(x[:, :, cut:] for x in (q, k, v, i_raw, log_f)), mid, chunk=16)
+    np.testing.assert_allclose(torch.cat([head, tail], 2).numpy(),
+                               whole.numpy(), **TOL)
+    for a, b1, b2 in zip(st, st1, st2):
+        np.testing.assert_allclose(b1.numpy(), a.numpy(), **TOL)
+        np.testing.assert_allclose(b2.numpy(), a.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("chunk", [0, 65])
+def test_mlstm_chunk_rejects_chunk_outside_its_tile(chunk):
+    """On the CPU as on the card: the kernel's tile holds 1..64 tokens."""
+    x = torch.zeros((1, 1, 8, 32))
+    g = torch.zeros((1, 1, 8))
+    with pytest.raises(ValueError, match="chunk"):
+        ops.mlstm_chunk(x, x, x, g, g, chunk=chunk)
 
 
 def _slot_cache(rng, b, t, nkv, hd, lengths):

@@ -1,12 +1,14 @@
-"""Parity of the port's dense ``Model`` with the JAX ``Model`` on reduced
-granite-3-2b with bridged parameters: one-shot prefill, chunked prefill
-with chunk < S, and decode steps, compared on the logits and the caches.
+"""Parity of the port's ``Model`` with the JAX ``Model`` with bridged
+parameters: reduced granite-3-2b (one-shot prefill, chunked prefill with
+chunk < S, decode steps) and reduced xlstm-350m (prefill, decode steps),
+compared on the logits and the caches.
 
 Tolerance: 1e-5 absolute and relative at float32 on the logits; the cache
 K/V rows that ``kv_pos`` marks valid agree to 2e-5 (they are one projection
-deeper than the embeddings, summed in another order).  Cache rows marked
-invalid are never read and are not compared: padded prompt rows differ by
-design (see ``repro_torch.models.transformer``).
+deeper than the embeddings, summed in another order), and so do the xLSTM
+state leaves.  Cache rows marked invalid are never read and are not
+compared: padded prompt rows differ by design (see
+``repro_torch.models.transformer``).
 """
 
 import dataclasses
@@ -153,8 +155,9 @@ def test_debug_check_catches_non_contiguous_cache(models):
 @pytest.mark.parametrize("kind,over", [
     ("moe", dict(n_experts=4, top_k=2)),
     ("vlm", dict(n_image_tokens=8)),
-    ("ssm", dict()),
+    ("hybrid", dict(ssm_state=16, attn_every=2)),
     ("dense", dict(sliding_window=16)),
+    ("encdec", dict(n_enc_layers=2)),
 ])
 def test_later_slices_raise(models, kind, over):
     """Families and layouts of later slices refuse with NotImplementedError
@@ -185,3 +188,94 @@ def test_bridge_casts_weights_and_keeps_norms_f32(models):
         bf["blocks"]["mlp"]["w1"].float().numpy(),
         tp["blocks"]["mlp"]["w1"].to(torch.bfloat16).float().numpy(),
     )
+
+
+# ------------------------------------------------------------------- xLSTM
+
+#: 2 mLSTM/sLSTM pairs, d_model 128, 4 heads of 32
+XLSTM_LAYERS = 4
+SSM_KEYS = ("mlstm_c", "mlstm_n", "mlstm_m", "slstm_c", "slstm_n",
+            "slstm_h", "slstm_m")
+
+
+@pytest.fixture(scope="module")
+def xlstm():
+    over = dict(vocab=VOCAB, n_layers=XLSTM_LAYERS)
+    jm = JaxModel(get_config("xlstm-350m").reduced(**over))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = Model(torch_get_config("xlstm-350m").reduced(**over), device="cpu",
+               debug_checks=True)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    return jm, jp, tm, tp
+
+
+def _compare_states(cj, ct):
+    assert set(ct) == set(SSM_KEYS) == set(cj)
+    for key in SSM_KEYS:
+        np.testing.assert_allclose(ct[key].numpy(), np.asarray(cj[key]),
+                                   **CACHE_TOL, err_msg=key)
+
+
+@pytest.mark.parametrize("s", [29, 70])
+def test_xlstm_prefill_and_decode_match_jax(xlstm, s):
+    """Prefill (ragged in the port's 64-token chunks at S=70, one chunk in
+    JAX's) then four greedy decode steps: logits and every state leaf."""
+    jm, jp, tm, tp = xlstm
+    toks = np.random.default_rng(s).integers(0, VOCAB, (2, s)).astype(
+        np.int32)
+    lj, cj = _jitted(jm, "prefill")(jp, {"tokens": jnp.asarray(toks)},
+                                    cache_len=CACHE_LEN)
+    lt, ct = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, CACHE_LEN)
+    assert lt.shape == (2, 1, VOCAB)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **LOGIT_TOL)
+    _compare_states(cj, ct)
+    pos = np.full((2,), s, np.int32)
+    for _ in range(4):
+        tok = np.asarray(jnp.argmax(lj[:, 0], -1)).astype(np.int32)[:, None]
+        lj, cj = _jitted(jm, "decode")(jp, cj, jnp.asarray(tok),
+                                       jnp.asarray(pos))
+        lt, ct = tm.decode(tp, ct, torch.from_numpy(tok),
+                           torch.from_numpy(pos))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **LOGIT_TOL)
+        _compare_states(cj, ct)
+        pos = pos + 1
+
+
+def test_xlstm_chunked_prefill_falls_back_to_one_shot(xlstm):
+    """``prefill_chunked`` of the ssm family is the one-shot prefill, as in
+    the JAX package."""
+    _, _, tm, tp = xlstm
+    toks = torch.from_numpy(
+        np.random.default_rng(3).integers(0, VOCAB, (1, 50)).astype(np.int32))
+    la, ca = tm.prefill(tp, {"tokens": toks}, CACHE_LEN)
+    lb, cb = tm.prefill_chunked(tp, {"tokens": toks}, CACHE_LEN, chunk=16)
+    torch.testing.assert_close(lb, la, rtol=0, atol=0)
+    for key in SSM_KEYS:
+        torch.testing.assert_close(cb[key], ca[key], rtol=0, atol=0)
+
+
+def test_xlstm_init_layout_matches_jax_tree(xlstm):
+    jm, jp, tm, _ = xlstm
+    mine = tm.init(seed=3)
+    want = jax.tree.map(lambda a: tuple(a.shape), jp)
+    got = jax.tree.map(lambda t: tuple(t.shape), mine)
+    assert got == want
+    cache = tm.init_cache(mine, 3, 64)
+    jcache = jm.init_cache(jp, 3, 64)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: v.shape for k, v in jcache.items()}
+    _compare_states(jcache, cache)
+
+
+def test_bridge_keeps_xlstm_f32_leaves(xlstm):
+    """A bf16-bridged xLSTM tree has, leaf for leaf, the dtypes of the
+    port's own ``Model.init`` at the bf16 config: the gate projections and
+    biases, head norms, sLSTM recurrent matrices and bias stay float32."""
+    jm, jp, tm, _ = xlstm
+    bf = params_from_jax(jax.tree.map(np.asarray, jp), "cpu", torch.bfloat16)
+    own = Model(dataclasses.replace(tm.cfg, dtype="bfloat16"),
+                device="cpu").init(seed=0)
+    dtypes = functools.partial(jax.tree.map, lambda t: str(t.dtype))
+    assert dtypes(bf) == dtypes(own)
+    assert bf["xlstm_pairs"]["slstm"]["r"].dtype == torch.float32
+    assert bf["xlstm_pairs"]["mlstm"]["wq"].dtype == torch.bfloat16
