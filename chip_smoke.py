@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --baseline DIR   # another tree's port, see below
 
 Phases, each of which fails the run (exit code 1) on error:
 
@@ -10,17 +11,20 @@ Phases, each of which fails the run (exit code 1) on error:
    comparisons are float32;
 2. build: compiles the three CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel) into
-   ``build/torch_kernels`` and prints the build time and each kernel's
-   register and shared-memory use;
+   ``build/torch_kernels`` and prints the build time, each kernel's
+   register and shared-memory use and, where ``cuobjdump`` exists, the
+   tensor-core instructions (HGMMA, HMMA) in each kernel's SASS;
 3. kernels: every kernel against its plain PyTorch version on the same
    inputs on the card (max |d| <= 2e-5 at float32, <= 3e-2 at bfloat16, the
-   tolerances of tests/test_kernels.py; the chunkwise mLSTM on its output
-   and its final state, from the empty and from a given state, at any
-   length); at the serving shapes (granite-3-2b for attention, xlstm-350m's
-   prefill for the mLSTM), the median time of the kernel, of its plain
-   version and, for attention, of one ``scaled_dot_product_attention`` call
-   (a yardstick the port never calls), beside the least time the card needs
-   for the work;
+   tolerances of tests/test_kernels.py; flash prefill logs the path,
+   tensor_core or cuda_core, that each case takes, paged decode its split;
+   the chunkwise mLSTM on its output and its final state, from the empty
+   and from a given state, at any length); at the serving shapes
+   (granite-3-2b for attention, xlstm-350m's prefill for the mLSTM), the
+   median device time of the kernel, of its plain version and, for
+   attention, of one ``scaled_dot_product_attention`` call (a yardstick
+   the port never calls), timed in turns, beside the least time the card
+   needs for the work;
 4. reduced engines: reduced granite-3-2b and reduced xlstm-350m at float32
    served on the GPU (the kernels) and on the CPU (the plain versions)
    under three schedulers with a pool small enough to force swaps;
@@ -30,7 +34,9 @@ Phases, each of which fails the run (exit code 1) on error:
    weights from a seed) served by ``ServeEngine`` (max_batch 8, cache_len
    512, pool 4096 tokens, justitia) for seeded agents; every agent
    completes with its token budget, paged decode launched 40 times per
-   decode step and flash prefill launched at all;
+   decode step and flash prefill launched at all; a profiled decode step
+   and a profiled prefill pass (B 8 at the largest bucket the agents
+   reach) that splits the flash kernel's device time from the rest;
 6. full width, xlstm-350m at bfloat16 (12 mLSTM/sLSTM pairs, d_model 1024,
    4 heads of 256) served the same way; every agent completes with its
    token budget and the mLSTM kernel is launched 12 times per prefill; a
@@ -42,12 +48,19 @@ reads them just after.  The last lines are the card's name and power
 limit, one ``{"kernels": ...}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the repository
 beside it, the script exits non-zero and prints no result.
+
+``--baseline DIR`` builds the kernels of the port under DIR (an earlier
+commit unpacked beside this one), times its two attention kernels by the
+method of phase 3 and profiles its granite prefill pass and a decode step
+after it as phase 5 does, so that one chip call can hold a change against
+its parent; it prints no result line.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -59,6 +72,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+#: GPU clock cycles each timed call waits behind (about 1 ms), longer than
+#: the host takes to enqueue any function timed here
+SLEEP_CYCLES = 2_000_000
 GRANITE = dict(n_layers=40, nh=32, n_kv=8, hd=64)
 #: xlstm-350m's prefill of one prompt at the longest cache
 XLSTM = dict(b=1, nh=4, s=512, hd=256)
@@ -77,24 +93,32 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, inputs, iters: int = 30, warmup: int = 3) -> float:
-    """Median time of ``fn(*inputs[i % len(inputs)])`` by CUDA events.
-    Rotating over several input sets larger together than the 50 MB L2
-    cache keeps each call cold, as each layer's call is on the main path."""
+def device_ms(fns: dict, inputs, iters: int = 30, warmup: int = 3) -> dict:
+    """Median device time of each ``fn(*inputs[i % len(inputs)])``, the
+    functions timed in turns (one call of each per round) by CUDA events.
+    Each timed call waits on the stream behind ``torch.cuda._sleep``, so
+    the host has enqueued it before the start event runs and the events
+    bracket device work only, not the host's launch overhead.  Rotating
+    over several input sets larger together than the 50 MB L2 cache keeps
+    each call cold, as each layer's call is on the main path."""
     import torch
 
-    for i in range(warmup):
-        fn(*inputs[i % len(inputs)])
-    times = []
+    for fn in fns.values():
+        for i in range(warmup):
+            fn(*inputs[i % len(inputs)])
+    times = {name: [] for name in fns}
     for i in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*inputs[i % len(inputs)])
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        args = inputs[i % len(inputs)]
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start.record()
+            fn(*args)
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def bound_ms(n_bytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -121,14 +145,17 @@ def _sdpa(q, k, v, **kw):
 # ------------------------------------------------------------------ phase 3
 
 
-def check_paged(ops, ref, torch, gen):
+def check_paged(ops, ref, torch, gen, split_plan):
     """Paged decode against its plain version; returns the max |d| at the
-    granite shape in bfloat16."""
+    granite shape in bfloat16.  The case with a length of 0 is held against
+    the plain version of the split walk, which floors l as the kernel and
+    the Pallas kernel do (the plain attention gives NaN there)."""
     cases = [  # b, nh, n_kv, hd, n_pages, max_pages, lengths
         (2, 4, 4, 64, 16, 4, [1, 64]),            # MHA
         (4, 8, 2, 32, 40, 6, [1, 16, 17, 96]),    # GQA, length edges
         (2, 8, 1, 128, 16, 8, [16, 128]),         # MQA
         (8, 32, 8, 64, 256, 32, None),            # granite, slot pages
+        (3, 8, 2, 64, 64, 20, "edges"),           # split edges, length 0
     ]
     granite_err = None
     for dtype in (torch.float32, torch.bfloat16):
@@ -136,6 +163,9 @@ def check_paged(ops, ref, torch, gen):
             q = torch.randn(b, nh, hd, generator=gen, device="cuda").to(dtype)
             kp, vp = (torch.randn(n_pages, 16, n_kv, hd, generator=gen,
                                   device="cuda").to(dtype) for _ in range(2))
+            n_split, per = split_plan(mp)
+            if lengths == "edges":   # 0, and on and past a split boundary
+                lengths = [0, per * 16, per * 16 + 1]
             if lengths is None:   # the engine's slot-contiguous tables
                 tables = torch.arange(b * mp, dtype=torch.int32,
                                       device="cuda").reshape(b, mp)
@@ -148,13 +178,18 @@ def check_paged(ops, ref, torch, gen):
                                     device="cuda")
             got = ops.paged_gqa_decode(q, kp, vp, tables, lens)
             qg = (q * hd ** -0.5).reshape(b, n_kv, nh // n_kv, hd)
-            want = ref.paged_attention_ref(qg, kp, vp, tables,
-                                           lens).reshape(b, nh, hd)
+            if lengths is not None and 0 in lengths:
+                want = ref.paged_attention_split_ref(qg, kp, vp, tables,
+                                                     lens, n_split)
+            else:
+                want = ref.paged_attention_ref(qg, kp, vp, tables, lens)
+            want = want.reshape(b, nh, hd)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             name = str(dtype).split(".")[-1]
             log(f"  paged {name:8s} b={b} nh={nh} n_kv={n_kv} hd={hd} "
-                f"lengths={lens.tolist()} max|d|={err:.3g}")
+                f"split={n_split}x{per} pages lengths={lens.tolist()} "
+                f"max|d|={err:.3g}")
             if not err <= TOL[name]:
                 raise AssertionError(f"paged decode differs by {err}")
             if lengths is None and dtype == torch.bfloat16:
@@ -162,7 +197,7 @@ def check_paged(ops, ref, torch, gen):
     return granite_err
 
 
-def check_flash(ops, ref, torch, gen):
+def check_flash(ops, ref, torch, gen, flash_path):
     """Flash prefill against its plain version; returns the max |d| at the
     granite shape in bfloat16."""
     cases = [  # b, s, nh, n_kv, hd, window
@@ -190,7 +225,8 @@ def check_flash(ops, ref, torch, gen):
             err = (got.float() - want.float()).abs().max().item()
             name = str(dtype).split(".")[-1]
             log(f"  flash {name:8s} b={b} S={s} nh={nh} n_kv={n_kv} hd={hd} "
-                f"window={window} max|d|={err:.3g}")
+                f"window={window} path={flash_path(dtype, hd, s)} "
+                f"max|d|={err:.3g}")
             if not err <= TOL[name]:
                 raise AssertionError(f"flash prefill differs by {err}")
             if (b, s, nh) == (8, 512, 32) and dtype == torch.bfloat16:
@@ -221,8 +257,8 @@ def time_paged(ops, ref, torch, gen):
         kp, vp = (torch.randn(b * mp, bs, n_kv, hd, generator=gen,
                               device="cuda").to(dt) for _ in range(2))
         sets.append((q, kp, vp))
-    kernel = median_ms(lambda q, kp, vp: ops.paged_gqa_decode(
-        q, kp, vp, tables, lens), sets)
+    def kernel(q, kp, vp):
+        return ops.paged_gqa_decode(q, kp, vp, tables, lens)
 
     def plain(q, kp, vp):
         qg = (q * hd ** -0.5).reshape(b, n_kv, nh // n_kv, hd)
@@ -233,15 +269,15 @@ def time_paged(ops, ref, torch, gen):
         v = vp.view(b, mp * bs, n_kv, hd).transpose(1, 2)
         return _sdpa(q[:, :, None], k, v)
 
-    plain_t = median_ms(plain, sets)
-    lib_t = median_ms(library, sets)
+    t = device_ms({"kernel": kernel, "plain": plain, "library": library},
+                  sets)
     n_tok = int(lens.sum())
     n_bytes = (2 * n_tok * n_kv * hd * 2 + 2 * b * nh * hd * 2
                + tables.numel() * 4 + lens.numel() * 4)
     flops = 2 * 2 * n_tok * (nh // n_kv) * n_kv * hd
     bound, by = bound_ms(n_bytes, flops, "bfloat16")
-    return dict(ms=kernel, plain_ms=plain_t, library_ms=lib_t,
-                bound_ms=bound, bound_by=by,
+    return dict(ms=t["kernel"], plain_ms=t["plain"],
+                library_ms=t["library"], bound_ms=bound, bound_by=by,
                 shape=f"B={b} nh={nh} n_kv={n_kv} hd={hd} len=512 bf16")
 
 
@@ -256,8 +292,8 @@ def time_flash(ops, ref, torch, gen):
         k, v = (torch.randn(b, s, n_kv, hd, generator=gen,
                             device="cuda").to(dt) for _ in range(2))
         sets.append((q, k, v))
-    kernel = median_ms(lambda q, k, v: ops.flash_prefill(
-        q, k, v, block_q=64, block_k=64), sets, iters=20)
+    def kernel(q, k, v):
+        return ops.flash_prefill(q, k, v, block_q=64, block_k=64)
 
     def plain(q, k, v):
         return ref.flash_attention_ref((q * hd ** -0.5).transpose(1, 2),
@@ -267,13 +303,13 @@ def time_flash(ops, ref, torch, gen):
         return _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                      is_causal=True)
 
-    plain_t = median_ms(plain, sets, iters=10)
-    lib_t = median_ms(library, sets, iters=20)
+    t = device_ms({"kernel": kernel, "plain": plain, "library": library},
+                  sets, iters=20)
     n_bytes = 2 * (2 * b * s * nh * hd + 2 * b * s * n_kv * hd)
     flops = 2 * 2 * b * nh * hd * s * (s + 1) // 2   # causal pairs
     bound, by = bound_ms(n_bytes, flops, "bfloat16")
-    return dict(ms=kernel, plain_ms=plain_t, library_ms=lib_t,
-                bound_ms=bound, bound_by=by,
+    return dict(ms=t["kernel"], plain_ms=t["plain"],
+                library_ms=t["library"], bound_ms=bound, bound_by=by,
                 shape=f"B={b} S={s} nh={nh} n_kv={n_kv} hd={hd} causal bf16")
 
 
@@ -341,8 +377,9 @@ def time_mlstm(ops, ref, torch, gen):
     b, h, s, hd = x["b"], x["nh"], x["s"], x["hd"]
     sets = [_mlstm_inputs(torch, gen, b, h, s, hd, torch.bfloat16,
                           False)[:5] for _ in range(16)]
-    kernel = median_ms(lambda *a: ops.mlstm_chunk(*a), sets)
-    plain_t = median_ms(lambda *a: ref.mlstm_chunk_ref(*a), sets, iters=10)
+    t = device_ms({"kernel": lambda *a: ops.mlstm_chunk(*a),
+                   "plain": lambda *a: ref.mlstm_chunk_ref(*a)}, sets,
+                  iters=20)
     chunk = 64
     lens = [min(chunk, s - t0) for t0 in range(0, s, chunk)]
     # inputs read once (q, k, v bf16; gates f32), h written in bf16 and the
@@ -354,10 +391,19 @@ def time_mlstm(ops, ref, torch, gen):
     flops = b * h * (2 * 2 * hd * sum(n * (n + 1) // 2 for n in lens)
                      + 2 * 2 * s * hd * hd + 2 * 2 * s * hd)
     bound, by = bound_ms(n_bytes, flops, "bfloat16")
-    return dict(ms=kernel, plain_ms=plain_t, library_ms=None,
+    return dict(ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
                 bound_ms=bound, bound_by=by,
                 shape=f"B={b} H={h} S={s} hd={hd} chunk={chunk} bf16 q/k/v, "
                       "f32 gates and state, empty state in")
+
+
+def log_timing(name: str, t: dict) -> None:
+    lib = ("none" if t["library_ms"] is None
+           else f"{t['library_ms']:.4f} ms")
+    log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library call {lib}, bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+        f"(kernel at {t['bound_ms'] / t['ms']:.3%} of the bound)")
 
 
 # ---------------------------------------------------------- phases 4 and 5
@@ -383,6 +429,14 @@ def seeded_agents(agent_cls, inference_spec, agent_cost, seed, n, p_range,
         agents.append(agent_cls(i, int(rng.integers(0, 2 * n)), stages,
                                 agent_cost(specs)))
     return agents, budgets
+
+
+def serving_agents(pkg, vocab: int):
+    """The 8 seeded agents the full-width phases serve (prompts of 64-400
+    tokens, 16-64 new tokens each)."""
+    return seeded_agents(pkg["EngineAgent"], pkg["InferenceSpec"],
+                         pkg["agent_cost"], 2026, 8, (64, 401), (16, 65),
+                         vocab)
 
 
 class TokenLog:
@@ -473,9 +527,7 @@ def full_width(torch, pkg, ops, arch: str):
         pool_tokens=4096, max_batch=8, cache_len=512, listener=toks,
     )
     eng.warmup()
-    agents, budgets = seeded_agents(pkg["EngineAgent"], pkg["InferenceSpec"],
-                                    pkg["agent_cost"], 2026, 8, (64, 401),
-                                    (16, 65), cfg.vocab)
+    agents, budgets = serving_agents(pkg, cfg.vocab)
     for a in agents:
         eng.submit_agent(a)
     wall = {"prefill": 0.0, "decode": 0.0}
@@ -548,10 +600,12 @@ def full_width(torch, pkg, ops, arch: str):
     if logits.shape != (8, 1, cfg.vocab) or not bool(
             torch.isfinite(logits.float()).all()):
         raise AssertionError("full-width logits are not finite")
-    profile_decode(torch, model, params, eng)
+    profile_decode(torch, model, params, eng.cache,
+                   eng._d_state[0][:, None].clone(), eng._d_state[1].clone())
     if ssm:
         profile_prefill(torch, model, params)
         return {"mlstm_chunk": launches["mlstm_chunk"]}
+    profile_granite_prefill(torch, model, params, 8, largest_bucket(agents))
     return {k: launches[k] for k in ("paged_attention", "flash_attention")}
 
 
@@ -573,26 +627,24 @@ def _device_rows(prof, per: int):
     return rows
 
 
-def profile_decode(torch, model, params, eng, steps: int = 4):
+def profile_decode(torch, model, params, cache, toks, pos, steps: int = 4):
     """Where a full-width decode step's time goes: host wall per step, the
-    device's busy time (sum of kernel times) and the kernels that take most
-    of it, from ``torch.profiler``."""
+    kernels launched per step, the device's busy time (sum of kernel times)
+    and the kernels that take most of it, from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
-    toks = eng._d_state[0][:, None].clone()
-    pos = eng._d_state[1].clone()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            model.decode(params, eng.cache, toks, pos)
+            model.decode(params, cache, toks, pos)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) / steps * 1e6
     rows = _device_rows(prof, steps)
     busy = sum(r[0] for r in rows)
     log(f"  profile: decode step wall {wall_us:.0f} us (profiler on), "
-        f"device busy {busy:.0f} us, idle share "
-        f"{1 - busy / wall_us:.3f}" if busy else
+        f"{sum(r[1] for r in rows)} kernels/step, device busy {busy:.0f} "
+        f"us, idle share {1 - busy / wall_us:.3f}" if busy else
         "  profile: the profiler recorded no device time (not measured)")
     for dev, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {dev:9.1f} us/step {count:5d} calls/step  {key[:70]}")
@@ -669,17 +721,128 @@ def _leaves(tree):
         yield tree
 
 
+def sass_counts(lib: Path):
+    """Tensor-core instructions in each kernel function of a built library,
+    ``{function: {"HGMMA": n, "HMMA": n}}`` from ``cuobjdump -sass``; None
+    where the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op + "." in line:
+                    counts[fn][op] += 1
+                    break
+    names = list(counts)
+    filt = shutil.which("c++filt")
+    if filt and names:
+        shown = subprocess.run([filt], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(shown) == len(names):
+            counts = {short: counts[n] for short, n in zip(shown, names)}
+    return counts
+
+
+def largest_bucket(agents) -> int:
+    """The largest 64-token prefill bucket the agents' prompts reach."""
+    longest = max(len(p) for a in agents for stage in a.stages
+                  for p, _ in stage)
+    return -(-longest // 64) * 64
+
+
+def profile_granite_prefill(torch, model, params, b: int, s: int) -> dict:
+    """Where one full-width granite prefill pass of ``b`` prompts of ``s``
+    tokens goes (the engine's one-shot bucketed prefill): the host wall
+    after a synchronize, then, from ``torch.profiler``, the flash kernel's
+    device time against all device time of the pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab, (b, s),
+                                     generator=gen, device="cuda")}
+    model.prefill(params, batch, cache_len=512)   # warm the allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, batch, cache_len=512)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill(params, batch, cache_len=512)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof, 1)
+    busy = sum(r[0] for r in rows)
+    flash = [r for r in rows if "flash" in r[2]]
+    flash_us = sum(r[0] for r in flash)
+    log(f"  prefill pass B={b} S={s}: wall {wall_ms:.2f} ms")
+    if not busy:
+        log("  profile: the profiler recorded no device time (not measured)")
+        return {"wall_ms": wall_ms}
+    log(f"  profile: device busy {busy:.0f} us; flash kernel {flash_us:.0f} "
+        f"us in {sum(r[1] for r in flash)} calls ({flash_us / busy:.3f} of "
+        f"the busy time), the other kernels {busy - flash_us:.0f} us in "
+        f"{sum(r[1] for r in rows) - sum(r[1] for r in flash)} calls")
+    for dev, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"    {dev:9.1f} us {count:6d} calls  {key[:70]}")
+    return {"wall_ms": wall_ms, "busy_us": busy, "flash_us": flash_us}
+
+
 # --------------------------------------------------------------------- main
 
 
-def main() -> int:
+def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
+    """The before side of a comparison made in one chip call: times the
+    attention kernels of another tree's port (an earlier commit unpacked
+    beside this one) by this script's methods and profiles its granite
+    prefill pass and a decode step.  Prints no result line."""
+    log(f"== baseline: the port under {tree}")
+    log(card_line())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.kernel_library()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    log_timing("paged_attention", time_paged(ops, ref, torch, gen))
+    log_timing("flash_attention", time_flash(ops, ref, torch, gen))
+    cfg = pkg["get_config"]("granite-3-2b")
+    model = pkg["Model"](cfg, device="cuda")
+    params = model.init(seed=0)
+    agents, _ = serving_agents(pkg, cfg.vocab)
+    s = largest_bucket(agents)
+    profile_granite_prefill(torch, model, params, 8, s)
+    # a decode step of 8 slots after a prefill of s tokens, as phase 5
+    # profiles one
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (8, s), generator=gen, device="cuda")
+    _, cache = model.prefill(params, {"tokens": toks}, cache_len=512)
+    profile_decode(torch, model, params, cache, toks[:, -1:].clone(),
+                   torch.full((8,), s, dtype=torch.int32, device="cuda"))
+    return 0
+
+
+def main(argv: list) -> int:
+    """``chip_smoke.py``: the smoke run; ``chip_smoke.py --baseline DIR``:
+    ``run_baseline`` on the port under DIR."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
               file=sys.stderr)
         return 2
-    src = ROOT / "src"
+    tree = ROOT
+    if argv:
+        if len(argv) != 2 or argv[0] != "--baseline":
+            print("usage: chip_smoke.py [--baseline DIR]", file=sys.stderr)
+            return 2
+        tree = Path(argv[1]).resolve()
+    src = tree / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not under {src}",
               file=sys.stderr)
@@ -693,15 +856,19 @@ def main() -> int:
     )
     from repro_torch.engine import EngineAgent, ServeEngine
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import smem_bytes as flash_smem
-    from repro_torch.kernels.mlstm_chunk import smem_bytes as mlstm_smem
-    from repro_torch.kernels.mlstm_chunk import tile_cols
-    from repro_torch.kernels.paged_attention import smem_bytes as paged_smem
     from repro_torch.models import Model
 
     pkg = dict(get_config=get_config, InferenceSpec=InferenceSpec,
                agent_cost=agent_cost, make_scheduler=make_scheduler,
                EngineAgent=EngineAgent, ServeEngine=ServeEngine, Model=Model)
+    if argv:
+        return run_baseline(torch, pkg, ops, ref, tree)
+    from repro_torch.kernels.flash_attention import flash_path
+    from repro_torch.kernels.flash_attention import smem_bytes as flash_smem
+    from repro_torch.kernels.mlstm_chunk import smem_bytes as mlstm_smem
+    from repro_torch.kernels.mlstm_chunk import tile_cols
+    from repro_torch.kernels.paged_attention import smem_bytes as paged_smem
+    from repro_torch.kernels.paged_attention import split_plan
 
     log("== 1. device")
     card = card_line()
@@ -720,29 +887,36 @@ def main() -> int:
         for line in path.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {path.stem}: {line.strip()}")
+    for name, mod in ops._KERNELS.items():
+        counts = sass_counts(ops._library_path(mod.SOURCE))
+        if counts is None:
+            log("  cuobjdump not found: tensor-core instruction counts not "
+                "measured")
+            break
+        for fn, c in counts.items():
+            log(f"  {name} SASS: HGMMA {c['HGMMA']:4d} HMMA {c['HMMA']:4d}"
+                f"  {fn[:90]}")
     g, hd = GRANITE, XLSTM["hd"]
     qpk = g["nh"] // g["n_kv"]
     log(f"  dynamic shared memory per block: paged_attention "
-        f"{paged_smem(qpk, g['hd'])} bytes (qpk {qpk}, hd {g['hd']}), "
-        f"flash_attention {flash_smem(g['hd'])} bytes (hd {g['hd']}), "
+        f"{paged_smem(qpk, g['hd'])} bytes (qpk {qpk}, hd {g['hd']}; "
+        f"{split_plan(512 // 16)[0]} blocks per slot and kv head), "
+        f"flash_attention {flash_smem(g['hd'], path='tensor_core', qpk=qpk)}"
+        f" bytes (tensor_core, hd {g['hd']}, qpk {qpk}) and "
+        f"{flash_smem(g['hd'])} bytes (cuda_core), "
         f"mlstm_chunk {mlstm_smem(hd)} bytes (hd {hd}; "
         f"{hd // tile_cols(hd)} blocks per sequence and head)")
 
     log("== 3. kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    err = {"paged_attention": check_paged(ops, ref, torch, gen),
-           "flash_attention": check_flash(ops, ref, torch, gen),
+    err = {"paged_attention": check_paged(ops, ref, torch, gen, split_plan),
+           "flash_attention": check_flash(ops, ref, torch, gen, flash_path),
            "mlstm_chunk": check_mlstm(ops, ref, torch, gen)}
     timing = {"paged_attention": time_paged(ops, ref, torch, gen),
               "flash_attention": time_flash(ops, ref, torch, gen),
               "mlstm_chunk": time_mlstm(ops, ref, torch, gen)}
     for name, t in timing.items():
-        lib = ("none" if t["library_ms"] is None
-               else f"{t['library_ms']:.4f} ms")
-        log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library call {lib}, bound "
-            f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
-            f"(kernel at {t['bound_ms'] / t['ms']:.3%} of the bound)")
+        log_timing(name, t)
 
     log("== 4. reduced engines, GPU (kernels) against CPU (plain)")
     reduced_engine(torch, pkg, "granite-3-2b")
@@ -782,7 +956,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except Exception as exc:  # every phase failure ends the run non-zero
         import traceback
 

@@ -2,34 +2,55 @@
 // (sm_90a), the prefill path.
 //
 // Replaces the Pallas TPU kernel `flash_attention` of the JAX package
-// (src/repro/kernels/flash_attention.py, body `_kernel`): q tiles stay
-// resident while K/V tiles stream past with an online softmax; tiles wholly
-// above the diagonal or left of the window are skipped; rows whose every key
-// in a tile is masked keep m = -inf and are guarded (no exp of -inf - -inf).
+// (src/repro/kernels/flash_attention.py, function `flash_attention`, body
+// `_kernel`): q tiles stay resident while K/V tiles stream past with an
+// online softmax; tiles wholly above the diagonal or left of the window are
+// skipped; rows whose every key in a tile is masked keep m = -inf and are
+// guarded (no exp of -inf - -inf); l is floored at 1e-30.
 //
 // Layouts: q and out are (B, nh, S, hd) and k/v are (B, n_kv, S, hd), each
 // given by strides in elements for (batch, head, sequence) with hd
-// contiguous and every row on a 16-byte boundary (tiles load 16 bytes at
-// a time), so the caller passes (B, S, n, hd) tensors transposed as views
-// without a copy.  The kv head of q head h is h / qpk.  q is
-// pre-scaled by hd^-0.5.
+// contiguous and every row on a 16-byte boundary, so the caller passes
+// (B, S, n, hd) tensors transposed as views without a copy.  The kv head
+// of q head h is h / qpk.  q is not pre-scaled: the kernel multiplies the
+// f32 scores by `scale` (hd^-0.5).
 //
-// Design.  One block per (q tile, q head, batch row).  It keeps its q tile
-// and an f32 accumulator in shared memory and loops over the kv tiles from
-// the window's first tile up to the diagonal, loading each K and V tile once
-// into shared memory.  The loop replaces the Pallas kernel's sequential kv
-// grid axis.  The kernel's own tile is 64 x 64 (32 x 32 above hd 128, to
-// stay inside 227 KB of shared memory) and the ragged edge is masked, so any
-// S works; the wrapper keeps the Pallas contract that S divides the caller's
-// block sizes.
+// Bound.  At granite-3-2b's largest prefill (B 8, S 512, 32 q / 8 kv
+// heads, hd 64, bf16) the causal products are 8.6 GFLOP, 8.7 us at the
+// bf16 tensor-core peak, and the bytes (q and out 16.8 MB each, k and v
+// 4.2 MB each) 12.5 us at 3.35 TB/s: the call is bound by bytes, with
+// the tensor cores close behind.
 //
-// Bound.  Causal attention does about 2 * 2 * B * nh * S^2 / 2 * hd FLOPs
-// over 2-byte inputs: at prefill lengths it is bound by the tensor cores.
-// This first version does its products on the CUDA cores in f32 from shared
-// memory (padded K rows keep the column reads free of bank conflicts), so it
-// runs far below the bf16 tensor-core peak; wgmma tiles fed by TMA are the
-// step that moves it toward the bound.
+// Two instantiations, chosen by the launcher's explicit rule
+// (`flash_path` in kernels/flash_attention.py):
+//
+// * tensor_core: bf16 with hd in {32, 64, 128} and S % 64 == 0.  A work
+//   item is a 64-row q tile of `heads` q heads that share a kv head (4 at
+//   granite; 2 at hd 128, whose output accumulator would not fit the
+//   registers of 4 warpgroups) for one batch row; items are ordered longest
+//   causal rows first.  The grid is persistent, one block an SM walking its
+//   share of the items: one consumer warpgroup per q head and one producer
+//   warp.  The producer keeps two q buffers and a ring of four K/V stages
+//   full by TMA over 4-D tensor maps (hd, heads, S, B) with the 128-byte
+//   swizzle (64-byte at hd 32), signalled by mbarriers, refilling a buffer
+//   once every warpgroup has released it; so each K/V tile crosses into
+//   shared memory once for all the heads, and the next item's q and K/V
+//   tiles arrive while the current item computes.  S = Q K^T is a chain of
+//   wgmma m64n64k16 with both operands in shared memory (K-major
+//   descriptors matching the TMA swizzle); the online softmax runs on the
+//   f32 accumulator fragments (a row lives in the four threads of a quad:
+//   max and sum reduce over shuffles 1 and 2), with the scale folded into
+//   the exponent's FMA; P goes to bf16 in registers and O += P V is a
+//   wgmma with A from registers and B the V tile read MN-major (transpose
+//   bit set).  The normalised output goes back through the warpgroup's q
+//   buffer, in the tensor map's swizzled layout, and out by TMA stores.
+// * cuda_core: every other input (float32, where TF32 would break the
+//   2e-5 parity of the float32 engines, and bf16 at any other hd or S).
+//   One block per (q tile, q head, batch row) keeps its q tile and an f32
+//   accumulator in shared memory and does its products in f32 on the CUDA
+//   cores; its ragged edge is masked, so any S runs.
 
+#include <cuda.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -38,14 +59,18 @@
 namespace repro_torch {
 namespace {
 
+// ---------------------------------------------------------------------------
+// cuda_core: f32 products on the CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 256;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int seq, int qpk, int hd, int window, int bq, int bk,
-    int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
-    int64_t k_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss) {
+    float scale, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
+    int64_t k_sh, int64_t k_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss) {
   extern __shared__ float smem[];
   const int iq = blockIdx.x;
   const int hq = blockIdx.y;
@@ -135,6 +160,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
         const float* kr = k_s + c * ks;
         s = 0.f;
         for (int d = 0; d < hd; ++d) s = fmaf(qr[d], kr[d], s);
+        s *= scale;
       }
       p_s[i] = s;
     }
@@ -186,8 +212,8 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int nh, int seq, int qpk, int hd, int window, const int64_t* st,
-           cudaStream_t stream) {
+           int nh, int seq, int qpk, int hd, int window, float scale,
+           const int64_t* st, cudaStream_t stream) {
   const int tile = hd <= 128 ? 64 : 32;
   const size_t smem =
       sizeof(float) * ((size_t)2 * tile * hd + (size_t)tile * (hd + 1) +
@@ -198,26 +224,688 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   flash_prefill_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), seq, qpk, hd, window,
-      tile, tile, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8]);
+      tile, tile, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8]);
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tensor_core: wgmma products, TMA copies, bf16
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kRows = 64;    // q rows of a warpgroup's tile; kv tokens a tile
+constexpr int kStages = 4;   // K/V ring depth
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle mode of the TMA copy that
+// wrote the tile (1 = 128-byte, 2 = 64-byte)
+// one box of a 4-D tensor map from shared memory to global memory, in the
+// issuing thread's bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the 16-byte chunk that row r's chunks are XORed with: the 128-byte
+// swizzle repeats every 8 rows of 128 bytes, the 64-byte one every 8 rows
+// of 64 bytes (two rows a 128-byte line)
+template <int SW>
+__device__ __forceinline__ int swizzle_row(int r) {
+  return SW == 128 ? (r & 7) : ((r >> 1) & 3);
+}
+
+template <int SW>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  constexpr uint64_t mode = SW == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// D (64 x N, f32) += A (64 x 16) * B (16 x N).  ss: A and B described in
+// shared memory, both K-major; rs: A in registers (the m16n8k16 A fragment
+// of each warp's 16 rows), B described in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 32) {
+    wgmma_rs_n32(d, a, db);
+  } else if constexpr (HD == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    wgmma_rs_n128(d, a, db);
+  }
+}
+
+template <int HD>
+struct Layout {
+  static constexpr int kSwizzle = HD >= 64 ? 128 : 64;  // bytes of an atom row
+  static constexpr int kColBlock = kRows * kSwizzle;  // 64-row column block
+  static constexpr int kTile = HD * 2 / kSwizzle * kColBlock;  // 64 x HD bf16
+};
+
+template <int HD, int WG>
+constexpr size_t smem_bytes() {
+  // 1 KB of slack to align the swizzled tiles, two buffers of WG q tiles,
+  // kStages K/V tile pairs, and the mbarriers (q full and empty per
+  // buffer; K/V full and empty per stage)
+  return 1024 + (size_t)(2 * WG + 2 * kStages) * Layout<HD>::kTile +
+         8 * (4 + 2 * kStages);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One work item: a 64-row q tile of WG q heads that share a kv head, for
+// one batch row.  Items are numbered longest causal rows first, and block
+// j of G takes item r * G + j in even rounds r and r * G + G - 1 - j in
+// odd ones, which evens out the blocks' work.
+struct Item {
+  int iq, hk, hq0, b, kt0, n_kt;
+};
+
+__device__ __forceinline__ int item_index(int r, int j, int G) {
+  return r * G + ((r & 1) ? G - 1 - j : j);
+}
+
+__device__ __forceinline__ Item item_at(int w, int n_qt, int batch, int qpk,
+                                        int WG, int n_kv, int window) {
+  const int groups = qpk / WG;
+  const int per_tile = n_kv * groups;   // items of one q tile and batch row
+  Item it;
+  const int batch_items = w / per_tile; // q tile index (longest first) x B
+  const int rem = w - batch_items * per_tile;
+  it.hk = rem / groups;
+  it.hq0 = it.hk * qpk + (rem - it.hk * groups) * WG;
+  it.b = batch_items % batch;
+  it.iq = n_qt - 1 - batch_items / batch;
+  const int q0 = it.iq * kRows;
+  // kv tiles from the window's first tile up to the diagonal
+  it.kt0 = window > 0 ? max(0, q0 - window + 1) / kRows : 0;
+  it.n_kt = it.iq - it.kt0 + 1;
+  return it;
+}
+
+// WG consumer warpgroups, then one producer warp.  The grid is persistent:
+// gridDim.x blocks walk the items, so the producer loads the next item's
+// q and K/V tiles while the consumers still work on the current one.
+template <int HD, int WG>
+__global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_o, int n_qt, int batch, int n_kv,
+    int qpk, int window, float scale_log2) {
+  using L = Layout<HD>;
+  constexpr int SW = L::kSwizzle;
+  constexpr int CB = HD * 2 / SW;    // column blocks of a tile
+  constexpr int KSTEPS = HD / 16;    // k16 steps of Q K^T
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_s = base;                       // 2 buffers x WG tiles
+  uint8_t* kv_s = base + 2 * WG * L::kTile;  // stage s: K tile, then V tile
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kv_s + 2 * kStages * L::kTile);
+  uint64_t* q_full = bars;                   // [2]
+  uint64_t* q_empty = bars + 2;              // [2]
+  uint64_t* kv_full = bars + 4;              // [kStages]
+  uint64_t* kv_empty = bars + 4 + kStages;   // [kStages]
+
+  const int n_items = n_qt * batch * n_kv * (qpk / WG);
+  const int G = gridDim.x;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], WG);
+    }
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_empty[i], WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= WG * 128) {
+    // the producer warp: one thread keeps the q buffers and the K/V ring
+    // full, refilling a buffer once every warpgroup has released it
+    if (tid == WG * 128) {
+      int tile = 0;
+      for (int r = 0, j = 0;; ++r, ++j) {
+        const int w = item_index(r, blockIdx.x, G);
+        if (w >= n_items) break;
+        const Item it = item_at(w, n_qt, batch, qpk, WG, n_kv, window);
+        const int qb = j & 1;
+        if (j >= 2) mbar_wait(&q_empty[qb], ((j >> 1) - 1) & 1);
+        mbar_expect_tx(&q_full[qb], WG * L::kTile);
+        for (int h = 0; h < WG; ++h) {
+#pragma unroll
+          for (int cb = 0; cb < CB; ++cb) {
+            tma_load(q_s + (qb * WG + h) * L::kTile + cb * L::kColBlock,
+                     &tm_q, &q_full[qb], cb * (SW / 2), it.hq0 + h,
+                     it.iq * kRows, it.b);
+          }
+        }
+        for (int i = 0; i < it.n_kt; ++i, ++tile) {
+          const int stage = tile % kStages;
+          if (tile >= kStages) {
+            mbar_wait(&kv_empty[stage], (tile / kStages - 1) & 1);
+          }
+          uint8_t* dst = kv_s + stage * 2 * L::kTile;
+          mbar_expect_tx(&kv_full[stage], 2 * L::kTile);
+#pragma unroll
+          for (int cb = 0; cb < CB; ++cb) {
+            tma_load(dst + cb * L::kColBlock, &tm_k, &kv_full[stage],
+                     cb * (SW / 2), it.hk, (it.kt0 + i) * kRows, it.b);
+            tma_load(dst + L::kTile + cb * L::kColBlock, &tm_v,
+                     &kv_full[stage], cb * (SW / 2), it.hk,
+                     (it.kt0 + i) * kRows, it.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // accumulator fragments: warp w of the warpgroup owns rows 16w .. 16w+15;
+  // a thread holds rows r0 and r0 + 8, columns 8j + 2t and 8j + 2t + 1
+  const int wg = tid / 128;
+  const int lane = tid & 31;
+  const int r0 = ((tid & 127) >> 5) * 16 + (lane >> 2);
+  const int t2 = (lane & 3) * 2;
+  int tile = 0;
+  for (int r = 0, j = 0;; ++r, ++j) {
+    const int w = item_index(r, blockIdx.x, G);
+    if (w >= n_items) break;
+    const Item it = item_at(w, n_qt, batch, qpk, WG, n_kv, window);
+    const int q0 = it.iq * kRows;
+    const int qi0 = q0 + r0;
+    const int qi1 = qi0 + 8;
+    const int qb = j & 1;
+    const uint32_t q_addr = smem_u32(q_s + (qb * WG + wg) * L::kTile);
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    // m is the running max of the raw scores; the scale goes into the
+    // exponent's FMA
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    mbar_wait(&q_full[qb], (j >> 1) & 1);
+
+    for (int i = 0; i < it.n_kt; ++i, ++tile) {
+      const int stage = tile % kStages;
+      const int kt = it.kt0 + i;
+      mbar_wait(&kv_full[stage], (tile / kStages) & 1);
+      const uint32_t k_addr = smem_u32(kv_s + stage * 2 * L::kTile);
+      const uint32_t v_addr = k_addr + L::kTile;
+
+      // S = Q K^T: k16 steps walk 32 bytes along the swizzled rows, then on
+      // to the next column block
+      float s[32];
+#pragma unroll
+      for (int c = 0; c < 32; ++c) s[c] = 0.f;
+      hold(s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const uint32_t off = (kk * 32) / SW * L::kColBlock + (kk * 32) % SW;
+        wgmma_ss_n64(s, desc<SW>(q_addr + off, 16, 8 * SW),
+                     desc<SW>(k_addr + off, 16, 8 * SW), kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      hold(s);
+
+      // mask the diagonal tile and the window's left edge
+      const int k0 = kt * kRows;
+      if (kt == it.iq || (window > 0 && k0 <= q0 + kRows - 1 - window)) {
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          const int qi = (c & 2) ? qi1 : qi0;
+          const int kj = k0 + 8 * (c >> 2) + t2 + (c & 1);
+          if (kj > qi || (window > 0 && kj <= qi - window)) s[c] = -INFINITY;
+        }
+      }
+      // online softmax over the quad that holds each row
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int c = 0; c < 32; c += 4) {
+        mx0 = fmaxf(mx0, fmaxf(s[c], s[c + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[c + 2], s[c + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // fully masked so far: m stays -inf and every p is 0
+      const float u0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
+      const float u1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
+      const float a0 = ex2(m0 * scale_log2 - u0);   // 0 while m is -inf
+      const float a1 = ex2(m1 * scale_log2 - u1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < 32; c += 4) {
+        s[c] = ex2(fmaf(s[c], scale_log2, -u0));
+        s[c + 1] = ex2(fmaf(s[c + 1], scale_log2, -u0));
+        s[c + 2] = ex2(fmaf(s[c + 2], scale_log2, -u1));
+        s[c + 3] = ex2(fmaf(s[c + 3], scale_log2, -u1));
+        sum0 += s[c] + s[c + 1];
+        sum1 += s[c + 2] + s[c + 3];
+      }
+      // l stays a per-thread partial sum: every thread of a quad scales it
+      // by the same alpha, so the quad's sum is taken once at the end
+      l0 = l0 * a0 + sum0;
+      l1 = l1 * a1 + sum1;
+#pragma unroll
+      for (int c = 0; c < HD / 2; c += 4) {
+        o[c] *= a0;
+        o[c + 1] *= a0;
+        o[c + 2] *= a1;
+        o[c + 3] *= a1;
+      }
+      // O += P V, P as bf16 A fragments: k16 step kk takes columns 16kk ..
+      // 16kk + 15, i.e. accumulator registers 8kk .. 8kk + 7
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          pa[kk][q] = pack_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+        }
+      }
+      hold(o);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // V tile read MN-major: 16 token rows per step, column blocks
+        // apart by one 64-row block
+        wgmma_rs<HD>(o, pa[kk],
+                     desc<SW>(v_addr + kk * 16 * SW, L::kColBlock, 8 * SW));
+      }
+      wg_commit();
+      wg_wait_all();
+      hold(o);
+
+      // this warpgroup is done with the stage
+      if ((tid & 127) == 0) mbar_arrive(&kv_empty[stage]);
+    }
+
+    // epilogue: the normalised tile goes into this warpgroup's q buffer,
+    // which the last Q K^T has finished reading, in the swizzled layout of
+    // the tensor map, and leaves by one TMA store per column block
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    uint8_t* o_s = q_s + (qb * WG + wg) * L::kTile;
+#pragma unroll
+    for (int c = 0; c < HD / 2; c += 4) {
+      const int col = 2 * c + t2;                  // 8j + 2t, j = c / 4
+      const int cb = col / (SW / 2);
+      const int chunk = (col % (SW / 2)) / 8;      // 16-byte chunk of a row
+      const int in_chunk = (col % 8) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(
+          o_s + cb * L::kColBlock + r0 * SW +
+          ((chunk ^ swizzle_row<SW>(r0)) * 16) + in_chunk) =
+          __floats2bfloat162_rn(o[c] * inv0, o[c + 1] * inv0);
+      *reinterpret_cast<__nv_bfloat162*>(
+          o_s + cb * L::kColBlock + (r0 + 8) * SW +
+          ((chunk ^ swizzle_row<SW>(r0 + 8)) * 16) + in_chunk) =
+          __floats2bfloat162_rn(o[c + 2] * inv1, o[c + 3] * inv1);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if ((tid & 127) == 0) {
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb) {
+        tma_store(&tm_o, o_s + cb * L::kColBlock, cb * (SW / 2),
+                  it.hq0 + wg, q0, it.b);
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      // the buffer is free for the next q once the store has read it
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      mbar_arrive(&q_empty[qb]);
+    }
+  }
+  if ((tid & 127) == 0) {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
+// so that the library needs no link against libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// 4-D map (hd, heads, S, B) of a bf16 tensor given element strides for
+// (batch, head, sequence); one box is one column block of a 64-row tile
+int make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
+             int batch, int64_t sb, int64_t sh, int64_t ss, int swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)swizzle / 2, 1, kRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HD, int WG>
+int launch(const void* q, const void* k, const void* v, void* out, int batch,
+           int nh, int n_kv, int seq, int window, float scale,
+           const int64_t* st, cudaStream_t stream) {
+  constexpr int SW = Layout<HD>::kSwizzle;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  int err = make_map(&tm_q, q, HD, nh, seq, batch, st[0], st[1], st[2], SW);
+  if (!err) {
+    err = make_map(&tm_k, k, HD, n_kv, seq, batch, st[3], st[4], st[5], SW);
+  }
+  if (!err) {
+    err = make_map(&tm_v, v, HD, n_kv, seq, batch, st[3], st[4], st[5], SW);
+  }
+  if (!err) {
+    err = make_map(&tm_o, out, HD, nh, seq, batch, st[6], st[7], st[8], SW);
+  }
+  if (err) return err;
+  constexpr size_t smem = smem_bytes<HD, WG>();
+  cudaError_t e = allow_smem(flash_tc_kernel<HD, WG>, smem);
+  if (e != cudaSuccess) return (int)e;
+  int device = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, flash_tc_kernel<HD, WG>, WG * 128 + 32, smem);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int qpk = nh / n_kv;
+  const int n_qt = seq / kRows;
+  const int n_items = n_qt * batch * n_kv * (qpk / WG);
+  const int grid = min(n_items, max(per_sm, 1) * sms);
+  flash_tc_kernel<HD, WG><<<grid, WG * 128 + 32, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_o, n_qt, batch, n_kv, qpk, window,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_heads(int heads, const void* q, const void* k, const void* v,
+                 void* out, int batch, int nh, int n_kv, int seq, int window,
+                 float scale, const int64_t* st, cudaStream_t stream) {
+  switch (heads) {
+    case 1:
+      return launch<HD, 1>(q, k, v, out, batch, nh, n_kv, seq, window, scale,
+                           st, stream);
+    case 2:
+      return launch<HD, 2>(q, k, v, out, batch, nh, n_kv, seq, window, scale,
+                           st, stream);
+    case 4:
+      if constexpr (HD <= 64) {
+        return launch<HD, 4>(q, k, v, out, batch, nh, n_kv, seq, window,
+                             scale, st, stream);
+      }
+      return (int)cudaErrorInvalidValue;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
 }  // namespace
 }  // namespace repro_torch
 
 // strides: 9 int64 in elements, (batch, head, seq) for q, k/v, out.
-// Returns the cudaError_t of the launch (0 on success).
+// tc_heads: 0 takes the cuda_core kernel; 1, 2 or 4 the tensor_core kernel
+// with that many q heads (warpgroups) per block, for bf16 at hd 32, 64 or
+// 128 and seq % 64 == 0 only.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int nh, int seq, int qpk, int hd,
                                       int window, const int64_t* strides,
-                                      int is_bf16, void* stream) {
+                                      int is_bf16, void* stream, float scale,
+                                      int tc_heads) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc_heads) {
+    if (!is_bf16 || seq % repro_torch::tc::kRows || qpk % tc_heads) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int n_kv = nh / qpk;
+    switch (hd) {
+      case 32:
+        return repro_torch::tc::launch_heads<32>(
+            tc_heads, q, k, v, out, batch, nh, n_kv, seq, window, scale,
+            strides, s);
+      case 64:
+        return repro_torch::tc::launch_heads<64>(
+            tc_heads, q, k, v, out, batch, nh, n_kv, seq, window, scale,
+            strides, s);
+      case 128:
+        return repro_torch::tc::launch_heads<128>(
+            tc_heads, q, k, v, out, batch, nh, n_kv, seq, window, scale,
+            strides, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   if (is_bf16) {
     return repro_torch::launch<__nv_bfloat16>(q, k, v, out, batch, nh, seq,
-                                              qpk, hd, window, strides, s);
+                                              qpk, hd, window, scale,
+                                              strides, s);
   }
   return repro_torch::launch<float>(q, k, v, out, batch, nh, seq, qpk, hd,
-                                    window, strides, s);
+                                    window, scale, strides, s);
 }

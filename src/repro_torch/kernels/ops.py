@@ -105,16 +105,18 @@ def paged_gqa_decode(
     *,
     block_size: int = 16,
 ):
-    """Paged decode attention; returns (B, nh, hd)."""
+    """Paged decode attention; returns (B, nh, hd).  The kernel applies
+    the hd^-0.5 scale itself; the plain version takes q pre-scaled."""
     b, nh, hd = q.shape
     n_kv = k_pages.shape[2]
-    qg = (q * hd ** -0.5).reshape(b, n_kv, nh // n_kv, hd)
+    qg = q.reshape(b, n_kv, nh // n_kv, hd)
     if q.device.type == "cpu":
-        out = paged_attention_ref(qg, k_pages, v_pages, block_tables, lengths)
+        out = paged_attention_ref(qg * hd ** -0.5, k_pages, v_pages,
+                                  block_tables, lengths)
     else:
         out = _paged.paged_attention(
             kernel_library()["paged_attention"], qg, k_pages, v_pages,
-            block_tables, lengths, block_size=block_size,
+            block_tables, lengths, block_size=block_size, scale=hd ** -0.5,
         )
         paged_gqa_decode.launches += 1
     return out.reshape(b, nh, hd)
@@ -135,18 +137,19 @@ def flash_prefill(
     """Causal (optionally SWA) prefill attention; returns (B, S, nh, hd).
 
     Keeps the Pallas kernel's contract: S must be divisible by both block
-    sizes, else ``ValueError``.
+    sizes, else ``ValueError``.  The kernel applies the hd^-0.5 scale to
+    its f32 scores; the plain version takes q pre-scaled.
     """
     s, hd = q.shape[1], q.shape[-1]
     if s % block_q or s % block_k:
         raise ValueError(f"S={s} must be divisible by block sizes")
-    qt = (q * hd ** -0.5).transpose(1, 2)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
-        out = flash_attention_ref(qt, kt, vt, window=window)
+        out = flash_attention_ref(qt * hd ** -0.5, kt, vt, window=window)
     else:
         out = _flash.flash_attention(
-            kernel_library()["flash_attention"], qt, kt, vt, window=window
+            kernel_library()["flash_attention"], qt, kt, vt, window=window,
+            scale=hd ** -0.5,
         )
         flash_prefill.launches += 1
     return out.transpose(1, 2)

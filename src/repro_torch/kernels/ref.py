@@ -31,6 +31,46 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     return out.to(q.dtype)
 
 
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths,
+                              n_split: int):
+    """What the split CUDA kernel computes, in plain PyTorch: the block
+    table's pages cut into ``n_split`` contiguous ranges of
+    ``ceil(max_pages / n_split)`` pages, a partial softmax state
+    (m, l, acc) per range over its unmasked tokens (an empty range gives
+    m = -inf, l = 0), and their merge, floored at l = 1e-30 (so length 0
+    gives 0).  Same arguments and result as ``paged_attention_ref``."""
+    b, n_kv, qpk, hd = q.shape
+    max_pages = block_tables.shape[1]
+    bs = k_pages.shape[1]
+    per = -(-max_pages // n_split)
+    tables = torch.clamp(block_tables.long(), 0, k_pages.shape[0] - 1)
+    k = k_pages[tables].reshape(b, max_pages * bs, n_kv, hd).float()
+    v = v_pages[tables].reshape(b, max_pages * bs, n_kv, hd).float()
+    neg_inf = torch.full((), -torch.inf, device=q.device)
+    m = torch.full((b, n_kv, qpk), -torch.inf, device=q.device)
+    l = torch.zeros((b, n_kv, qpk), device=q.device)
+    acc = torch.zeros((b, n_kv, qpk, hd), device=q.device)
+    for r in range(n_split):
+        t0, t1 = r * per * bs, min((r + 1) * per, max_pages) * bs
+        if t0 >= t1:
+            continue
+        s = torch.einsum("bngh,btnh->bngt", q.float(), k[:, t0:t1])
+        ids = torch.arange(t0, t1, device=q.device)[None]
+        s = torch.where((ids < lengths[:, None])[:, None, None, :], s,
+                        neg_inf)
+        m_r = s.amax(dim=-1)
+        p = torch.exp(s - torch.where(m_r == -torch.inf, 0.0, m_r)[..., None])
+        l_r = p.sum(dim=-1)
+        acc_r = torch.einsum("bngt,btnh->bngh", p, v[:, t0:t1])
+        m_new = torch.maximum(m, m_r)
+        use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        a, c = torch.exp(m - use), torch.exp(m_r - use)
+        l = a * l + c * l_r
+        acc = a[..., None] * acc + c[..., None] * acc_r
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
 def flash_attention_ref(q, k, v, window: int = 0):
     """q: (B,nh,S,hd) pre-scaled; k/v: (B,n_kv,S,hd); causal (+SWA)."""
     b, nh, s, hd = q.shape

@@ -171,21 +171,31 @@ def _prefill_attention(q, k, v, window: int):
     return out[:, :s] if pad else out
 
 
-def _decode_attention(q, k_cache, v_cache, pos):
-    """One query token per slot against the slot cache, through
-    ``paged_gqa_decode`` with a slot-contiguous block table."""
-    b, t, n_kv, hd = k_cache.shape
+def slot_pages(b: int, t: int, pos):
+    """The slot cache viewed as pages: slot b's block table
+    ``b*T/bs + arange(T/bs)`` (B, T/bs) and lengths ``pos + 1`` (B,), both
+    int32.  A decode step builds them once and hands them to every
+    layer."""
     if t % DECODE_PAGE:
         raise ValueError(
             f"cache length {t} is not a multiple of the decode page size "
             f"{DECODE_PAGE}"
         )
     n_pages = t // DECODE_PAGE
-    dev = q.device
-    tables = (torch.arange(b, dtype=torch.int32, device=dev)[:, None]
-              * n_pages
-              + torch.arange(n_pages, dtype=torch.int32, device=dev))
-    lengths = (pos + 1).to(torch.int32)
+    tables = torch.arange(b * n_pages, dtype=torch.int32,
+                          device=pos.device).view(b, n_pages)
+    return tables, (pos + 1).to(torch.int32)
+
+
+def _decode_attention(q, k_cache, v_cache, pos, pages=None):
+    """One query token per slot against the slot cache, through
+    ``paged_gqa_decode`` with a slot-contiguous block table; ``pages`` is
+    ``slot_pages(B, T, pos)`` where the caller has built it already."""
+    b, t, n_kv, hd = k_cache.shape
+    if pages is None:
+        pages = slot_pages(b, t, pos)
+    tables, lengths = pages
+    n_pages = t // DECODE_PAGE
     out = paged_gqa_decode(
         q[:, 0],
         k_cache.view(b * n_pages, DECODE_PAGE, n_kv, hd),
@@ -256,8 +266,9 @@ def dense_block_chunk(p, x, pos, positions, lens, k_cache, v_cache, kv_pos,
 
 
 def dense_block_decode(p, x, pos, k_cache, v_cache, kv_pos, cfg: ModelConfig,
-                       ring: bool):
-    """One-token decode step against a full KV cache (updated in place)."""
+                       ring: bool, pages=None):
+    """One-token decode step against a full KV cache (updated in place).
+    ``pages``: the step's ``slot_pages``, built here when not given."""
     if ring:
         raise _unsupported("the ring (sliding-window) cache", "ring-cache")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -267,7 +278,7 @@ def dense_block_decode(p, x, pos, k_cache, v_cache, kv_pos, cfg: ModelConfig,
     update_cache(k_cache, k_new, pos)
     update_cache(v_cache, v_new, pos)
     update_pos(kv_pos, pos, 1)
-    att = _decode_attention(q, k_cache, v_cache, pos)
+    att = _decode_attention(q, k_cache, v_cache, pos, pages)
     x = x + attention_out(p["attn"], att)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + gated_mlp(p["mlp"], h2), k_cache, v_cache, kv_pos
@@ -557,10 +568,13 @@ class Model:
         ring = bool(cfg.sliding_window) and (
             cache["k"].shape[2] == cfg.sliding_window
         )
+        # one page table for every layer of the step
+        b, t = cache["k"].shape[1:3]
+        pages = None if ring else slot_pages(b, t, pos)
         for l, lp in enumerate(self.layer_params(params)):
             x, _, _, _ = dense_block_decode(
                 lp, x, pos, cache["k"][l], cache["v"][l],
-                cache["kv_pos"][l], cfg, ring,
+                cache["kv_pos"][l], cfg, ring, pages,
             )
         if self.debug_checks:
             check_slot_contiguous(cache["kv_pos"], pos)
