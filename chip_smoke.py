@@ -13,18 +13,22 @@ Phases, each of which fails the run (exit code 1) on error:
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel) into
    ``build/torch_kernels`` and prints the build time, each kernel's
    register and shared-memory use and, where ``cuobjdump`` exists, the
-   tensor-core instructions (HGMMA, HMMA) in each kernel's SASS;
+   tensor-core instructions (HGMMA, HMMA) in each kernel's SASS; a
+   tensor-core kernel (flash's, the mLSTM's two passes) without HGMMA
+   fails the run;
 3. kernels: every kernel against its plain PyTorch version on the same
    inputs on the card (max |d| <= 2e-5 at float32, <= 3e-2 at bfloat16, the
    tolerances of tests/test_kernels.py; flash prefill logs the path,
    tensor_core or cuda_core, that each case takes, paged decode its split;
    the chunkwise mLSTM on its output and its final state, from the empty
-   and from a given state, at any length); at the serving shapes
-   (granite-3-2b for attention, xlstm-350m's prefill for the mLSTM), the
-   median device time of the kernel, of its plain version and, for
-   attention, of one ``scaled_dot_product_attention`` call (a yardstick
-   the port never calls), timed in turns, beside the least time the card
-   needs for the work;
+   and from a given state, at any length, each case on the path its rule
+   gives and, where that is tensor_core, on the cuda_core kernel too); at
+   the serving shapes (granite-3-2b for attention, xlstm-350m's prefill
+   for the mLSTM, at 512 and 256 tokens), the median device time of the
+   kernel, of its plain version and, for attention, of one
+   ``scaled_dot_product_attention`` call (a yardstick the port never
+   calls), timed in turns, beside the least time the card needs for the
+   work; for the mLSTM also the empty launch of both passes' grids;
 4. reduced engines: reduced granite-3-2b and reduced xlstm-350m at float32
    served on the GPU (the kernels) and on the CPU (the plain versions)
    under three schedulers with a pool small enough to force swaps;
@@ -50,10 +54,11 @@ limit, one ``{"kernels": ...}`` JSON line and, last, ``{"ok": true,
 beside it, the script exits non-zero and prints no result.
 
 ``--baseline DIR`` builds the kernels of the port under DIR (an earlier
-commit unpacked beside this one), times its two attention kernels by the
-method of phase 3 and profiles its granite prefill pass and a decode step
-after it as phase 5 does, so that one chip call can hold a change against
-its parent; it prints no result line.
+commit unpacked beside this one), times its three kernels by the method
+of phase 3, profiles its granite prefill pass and a decode step after it
+as phase 5 does and its xlstm-350m prefill as phase 6 does, so that one
+chip call can hold a change against its parent; it prints no result
+line.
 """
 
 from __future__ import annotations
@@ -76,6 +81,9 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 #: the host takes to enqueue any function timed here
 SLEEP_CYCLES = 2_000_000
 GRANITE = dict(n_layers=40, nh=32, n_kv=8, hd=64)
+#: kernel functions that must hold tensor-core (HGMMA) instructions
+TENSOR_CORE_KERNELS = ("flash_tc_kernel", "mlstm_chunk_states_kernel",
+                       "mlstm_chunk_outputs_kernel")
 #: xlstm-350m's prefill of one prompt at the longest cache
 XLSTM = dict(b=1, nh=4, s=512, hd=256)
 
@@ -145,38 +153,50 @@ def _sdpa(q, k, v, **kw):
 # ------------------------------------------------------------------ phase 3
 
 
-def check_paged(ops, ref, torch, gen, split_plan):
+def check_paged(ops, ref, torch, gen, split_plan, decode_page):
     """Paged decode against its plain version; returns the max |d| at the
     granite shape in bfloat16.  The case with a length of 0 is held against
     the plain version of the split walk, which floors l as the kernel and
-    the Pallas kernel do (the plain attention gives NaN there)."""
-    cases = [  # b, nh, n_kv, hd, n_pages, max_pages, lengths
-        (2, 4, 4, 64, 16, 4, [1, 64]),            # MHA
-        (4, 8, 2, 32, 40, 6, [1, 16, 17, 96]),    # GQA, length edges
-        (2, 8, 1, 128, 16, 8, [16, 128]),         # MQA
-        (8, 32, 8, 64, 256, 32, None),            # granite, slot pages
-        (3, 8, 2, 64, 64, 20, "edges"),           # split edges, length 0
+    the Pallas kernel do (the plain attention gives NaN there).  The slot
+    caches of 100 and 97 rows are viewed as ``Model.decode`` views them, in
+    pages of ``decode_page(T)`` tokens."""
+    cases = [  # b, nh, n_kv, hd, page size, n_pages, max_pages, lengths
+        (2, 4, 4, 64, 16, 16, 4, [1, 64]),            # MHA
+        (4, 8, 2, 32, 16, 40, 6, [1, 16, 17, 96]),    # GQA, length edges
+        (2, 8, 1, 128, 16, 16, 8, [16, 128]),         # MQA
+        (8, 32, 8, 64, 16, 256, 32, None),            # granite, slot pages
+        (3, 8, 2, 64, 16, 64, 20, "edges"),           # split edges, length 0
     ]
+    for t in (100, 97):   # granite's slots at cache lengths 16 does not divide
+        bs = decode_page(t)
+        cases.append((8, 32, 8, 64, bs, 8 * t // bs, t // bs, None))
+    # those two cases draw from a generator of their own, so that every
+    # other phase-3 input is what earlier trees' runs drew (comparable)
+    own = torch.Generator(device="cuda").manual_seed(100)
     granite_err = None
     for dtype in (torch.float32, torch.bfloat16):
-        for b, nh, n_kv, hd, n_pages, mp, lengths in cases:
-            q = torch.randn(b, nh, hd, generator=gen, device="cuda").to(dtype)
-            kp, vp = (torch.randn(n_pages, 16, n_kv, hd, generator=gen,
+        for b, nh, n_kv, hd, bs, n_pages, mp, lengths in cases:
+            gen_case = gen if bs == 16 else own
+            q = torch.randn(b, nh, hd, generator=gen_case,
+                            device="cuda").to(dtype)
+            kp, vp = (torch.randn(n_pages, bs, n_kv, hd, generator=gen_case,
                                   device="cuda").to(dtype) for _ in range(2))
             n_split, per = split_plan(mp)
             if lengths == "edges":   # 0, and on and past a split boundary
-                lengths = [0, per * 16, per * 16 + 1]
+                lengths = [0, per * bs, per * bs + 1]
             if lengths is None:   # the engine's slot-contiguous tables
                 tables = torch.arange(b * mp, dtype=torch.int32,
                                       device="cuda").reshape(b, mp)
-                lens = torch.randint(1, mp * 16 + 1, (b,), generator=gen,
-                                     device="cuda", dtype=torch.int32)
+                lens = torch.randint(1, mp * bs + 1, (b,),
+                                     generator=gen_case, device="cuda",
+                                     dtype=torch.int32)
             else:
                 tables = torch.randint(0, n_pages, (b, mp), generator=gen,
                                        device="cuda", dtype=torch.int32)
                 lens = torch.tensor(lengths, dtype=torch.int32,
                                     device="cuda")
-            got = ops.paged_gqa_decode(q, kp, vp, tables, lens)
+            got = ops.paged_gqa_decode(q, kp, vp, tables, lens,
+                                       block_size=bs)
             qg = (q * hd ** -0.5).reshape(b, n_kv, nh // n_kv, hd)
             if lengths is not None and 0 in lengths:
                 want = ref.paged_attention_split_ref(qg, kp, vp, tables,
@@ -188,11 +208,11 @@ def check_paged(ops, ref, torch, gen, split_plan):
             err = (got.float() - want.float()).abs().max().item()
             name = str(dtype).split(".")[-1]
             log(f"  paged {name:8s} b={b} nh={nh} n_kv={n_kv} hd={hd} "
-                f"split={n_split}x{per} pages lengths={lens.tolist()} "
-                f"max|d|={err:.3g}")
+                f"page={bs} split={n_split}x{per} pages "
+                f"lengths={lens.tolist()} max|d|={err:.3g}")
             if not err <= TOL[name]:
                 raise AssertionError(f"paged decode differs by {err}")
-            if lengths is None and dtype == torch.bfloat16:
+            if lengths is None and bs == 16 and dtype == torch.bfloat16:
                 granite_err = err
     return granite_err
 
@@ -331,10 +351,12 @@ def _mlstm_inputs(torch, gen, b, h, s, hd, dtype, state: bool):
     return q, k, v, i_raw, log_f, st
 
 
-def check_mlstm(ops, ref, torch, gen):
+def check_mlstm(ops, ref, torch, gen, mlstm):
     """The chunkwise mLSTM against its plain version on its output and its
-    final (C, n, m); returns the max |d| at xlstm-350m's prefill shape in
-    bfloat16."""
+    final (C, n, m), each case on the instantiation its rule gives
+    (``mlstm.mlstm_path``) and, where that is tensor_core, on the cuda_core
+    kernel too; returns the max |d| on h at xlstm-350m's prefill shape in
+    bfloat16 on the rule's path."""
     x = XLSTM
     cases = [  # b, h, s, hd, chunk, with a state
         (2, 2, 64, 32, 16, False),     # the shapes of tests/test_kernels.py
@@ -345,41 +367,68 @@ def check_mlstm(ops, ref, torch, gen):
         (1, 4, 257, 256, 64, False),
         (1, 4, 257, 256, 64, True),    # from a given state
         (2, 2, 37, 32, 64, True),
+        (2, 2, 200, 128, 64, True),
+        (1, 2, 1100, 256, 64, True),   # more chunks than the states ring
         (x["b"], x["nh"], x["s"], x["hd"], 64, False),   # xlstm-350m
     ]
+    fn = ops.kernel_library()["mlstm_chunk"]
     xlstm_err = None
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for b, h, s, hd, chunk, with_state in cases:
             args = _mlstm_inputs(torch, gen, b, h, s, hd, dtype, with_state)
-            got, got_st = ops.mlstm_chunk(*args, chunk=chunk)
             want, want_st = ref.mlstm_chunk_ref(*args, chunk=chunk)
-            torch.cuda.synchronize()
-            errs = [(g.float() - w.float()).abs().max().item()
-                    for g, w in zip((got, *got_st), (want, *want_st))]
-            log(f"  mlstm {name:8s} b={b} h={h} S={s} hd={hd} chunk={chunk} "
-                f"state={'given' if with_state else 'empty'} max|d| "
-                f"h={errs[0]:.3g} C={errs[1]:.3g} n={errs[2]:.3g} "
-                f"m={errs[3]:.3g}")
-            if not max(errs) <= TOL[name]:
-                raise AssertionError(f"mlstm_chunk differs by {max(errs)}")
-            if (b, h, s, hd) == (x["b"], x["nh"], x["s"], x["hd"]) and \
-                    dtype == torch.bfloat16:
-                xlstm_err = errs[0]
+            rule = mlstm.mlstm_path(dtype, hd, chunk)
+            paths = [rule] + (["cuda_core"] if rule == "tensor_core" else [])
+            for path in paths:
+                if path == rule:
+                    got, got_st = ops.mlstm_chunk(*args, chunk=chunk)
+                else:
+                    got, got_st = mlstm.mlstm_chunk(
+                        fn, *args[:3], *(g.contiguous() for g in args[3:5]),
+                        args[5], chunk=chunk, path=path)
+                torch.cuda.synchronize()
+                errs = [(g.float() - w.float()).abs().max().item()
+                        for g, w in zip((got, *got_st), (want, *want_st))]
+                log(f"  mlstm {name:8s} b={b} h={h} S={s} hd={hd} "
+                    f"chunk={chunk} state={'given' if with_state else 'empty'}"
+                    f" path={path}{'' if path == rule else ' (forced)'} "
+                    f"max|d| h={errs[0]:.3g} C={errs[1]:.3g} n={errs[2]:.3g} "
+                    f"m={errs[3]:.3g}")
+                if not max(errs) <= TOL[name]:
+                    raise AssertionError(
+                        f"mlstm_chunk ({path}) differs by {max(errs)}")
+                if (b, h, s, hd) == (x["b"], x["nh"], x["s"], x["hd"]) and \
+                        dtype == torch.bfloat16 and path == rule:
+                    xlstm_err = errs[0]
     return xlstm_err
 
 
-def time_mlstm(ops, ref, torch, gen):
-    """xlstm-350m's prefill shape: one prompt of 512 tokens, 4 heads of
+def time_mlstm(ops, ref, torch, gen, s: int = XLSTM["s"]):
+    """xlstm-350m's prefill shape: one prompt of ``s`` tokens, 4 heads of
     256, bf16 q/k/v, float32 gates, from the empty state as prefill starts;
-    one layer's call, 16 input sets rotating to keep L2 cold."""
+    one layer's call, 16 input sets rotating to keep L2 cold.  Where the
+    tree's launcher has ``empty``, also the two passes' grids launched with
+    no work (the launch floor)."""
+    import inspect
+
+    from repro_torch.kernels import mlstm_chunk as mlstm
+
     x = XLSTM
-    b, h, s, hd = x["b"], x["nh"], x["s"], x["hd"]
-    sets = [_mlstm_inputs(torch, gen, b, h, s, hd, torch.bfloat16,
-                          False)[:5] for _ in range(16)]
-    t = device_ms({"kernel": lambda *a: ops.mlstm_chunk(*a),
-                   "plain": lambda *a: ref.mlstm_chunk_ref(*a)}, sets,
-                  iters=20)
+    b, h, hd = x["b"], x["nh"], x["hd"]
+    # the gates contiguous, as the wrapper hands them to the kernel, so
+    # that no copy is timed with it
+    sets = []
+    for _ in range(16):
+        q, k, v, i_raw, log_f, _ = _mlstm_inputs(torch, gen, b, h, s, hd,
+                                                 torch.bfloat16, False)
+        sets.append((q, k, v, i_raw.contiguous(), log_f.contiguous()))
+    fns = {"kernel": lambda *a: ops.mlstm_chunk(*a),
+           "plain": lambda *a: ref.mlstm_chunk_ref(*a)}
+    if "empty" in inspect.signature(mlstm.mlstm_chunk).parameters:
+        fn = ops.kernel_library()["mlstm_chunk"]
+        fns["empty"] = lambda *a: mlstm.mlstm_chunk(fn, *a, empty=True)
+    t = device_ms(fns, sets, iters=20)
     chunk = 64
     lens = [min(chunk, s - t0) for t0 in range(0, s, chunk)]
     # inputs read once (q, k, v bf16; gates f32), h written in bf16 and the
@@ -392,7 +441,7 @@ def time_mlstm(ops, ref, torch, gen):
                      + 2 * 2 * s * hd * hd + 2 * 2 * s * hd)
     bound, by = bound_ms(n_bytes, flops, "bfloat16")
     return dict(ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
-                bound_ms=bound, bound_by=by,
+                bound_ms=bound, bound_by=by, empty_ms=t.get("empty"),
                 shape=f"B={b} H={h} S={s} hd={hd} chunk={chunk} bf16 q/k/v, "
                       "f32 gates and state, empty state in")
 
@@ -400,10 +449,12 @@ def time_mlstm(ops, ref, torch, gen):
 def log_timing(name: str, t: dict) -> None:
     lib = ("none" if t["library_ms"] is None
            else f"{t['library_ms']:.4f} ms")
+    floor = ("" if t.get("empty_ms") is None
+             else f", the grids launched empty {t['empty_ms']:.4f} ms")
     log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, library call {lib}, bound "
         f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
-        f"(kernel at {t['bound_ms'] / t['ms']:.3%} of the bound)")
+        f"(kernel at {t['bound_ms'] / t['ms']:.3%} of the bound){floor}")
 
 
 # ---------------------------------------------------------- phases 4 and 5
@@ -800,9 +851,9 @@ def profile_granite_prefill(torch, model, params, b: int, s: int) -> dict:
 
 def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     """The before side of a comparison made in one chip call: times the
-    attention kernels of another tree's port (an earlier commit unpacked
-    beside this one) by this script's methods and profiles its granite
-    prefill pass and a decode step.  Prints no result line."""
+    kernels of another tree's port (an earlier commit unpacked beside this
+    one) by this script's methods, profiles its granite prefill pass and a
+    decode step, and its xlstm-350m prefill.  Prints no result line."""
     log(f"== baseline: the port under {tree}")
     log(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -811,6 +862,8 @@ def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     log_timing("paged_attention", time_paged(ops, ref, torch, gen))
     log_timing("flash_attention", time_flash(ops, ref, torch, gen))
+    for s_len in (XLSTM["s"], 256):
+        log_timing("mlstm_chunk", time_mlstm(ops, ref, torch, gen, s_len))
     cfg = pkg["get_config"]("granite-3-2b")
     model = pkg["Model"](cfg, device="cuda")
     params = model.init(seed=0)
@@ -824,6 +877,11 @@ def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     _, cache = model.prefill(params, {"tokens": toks}, cache_len=512)
     profile_decode(torch, model, params, cache, toks[:, -1:].clone(),
                    torch.full((8,), s, dtype=torch.int32, device="cuda"))
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    xlstm = pkg["Model"](pkg["get_config"]("xlstm-350m"), device="cuda")
+    profile_prefill(torch, xlstm, xlstm.init(seed=0))
     return 0
 
 
@@ -863,12 +921,12 @@ def main(argv: list) -> int:
                EngineAgent=EngineAgent, ServeEngine=ServeEngine, Model=Model)
     if argv:
         return run_baseline(torch, pkg, ops, ref, tree)
+    from repro_torch.kernels import mlstm_chunk as mlstm
     from repro_torch.kernels.flash_attention import flash_path
     from repro_torch.kernels.flash_attention import smem_bytes as flash_smem
-    from repro_torch.kernels.mlstm_chunk import smem_bytes as mlstm_smem
-    from repro_torch.kernels.mlstm_chunk import tile_cols
     from repro_torch.kernels.paged_attention import smem_bytes as paged_smem
     from repro_torch.kernels.paged_attention import split_plan
+    from repro_torch.models.transformer import decode_page
 
     log("== 1. device")
     card = card_line()
@@ -896,6 +954,8 @@ def main(argv: list) -> int:
         for fn, c in counts.items():
             log(f"  {name} SASS: HGMMA {c['HGMMA']:4d} HMMA {c['HMMA']:4d}"
                 f"  {fn[:90]}")
+            if any(t in fn for t in TENSOR_CORE_KERNELS) and not c["HGMMA"]:
+                raise AssertionError(f"tensor-core kernel {fn} has no HGMMA")
     g, hd = GRANITE, XLSTM["hd"]
     qpk = g["nh"] // g["n_kv"]
     log(f"  dynamic shared memory per block: paged_attention "
@@ -904,19 +964,27 @@ def main(argv: list) -> int:
         f"flash_attention {flash_smem(g['hd'], path='tensor_core', qpk=qpk)}"
         f" bytes (tensor_core, hd {g['hd']}, qpk {qpk}) and "
         f"{flash_smem(g['hd'])} bytes (cuda_core), "
-        f"mlstm_chunk {mlstm_smem(hd)} bytes (hd {hd}; "
-        f"{hd // tile_cols(hd)} blocks per sequence and head)")
+        f"mlstm_chunk (hd {hd}) {mlstm.smem_bytes(hd, kernel='states')} "
+        f"bytes (states pass), {mlstm.smem_bytes(hd, kernel='outputs')} "
+        f"bytes (outputs pass), {mlstm.smem_bytes(hd)} bytes (cuda_core); "
+        f"blocks at xlstm-350m's prefill "
+        f"{mlstm.grids(1, XLSTM['nh'], XLSTM['s'], hd, 'tensor_core')} "
+        f"(tensor_core), "
+        f"{mlstm.grids(1, XLSTM['nh'], XLSTM['s'], hd, 'cuda_core')}")
 
     log("== 3. kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    err = {"paged_attention": check_paged(ops, ref, torch, gen, split_plan),
+    err = {"paged_attention": check_paged(ops, ref, torch, gen, split_plan,
+                                          decode_page),
            "flash_attention": check_flash(ops, ref, torch, gen, flash_path),
-           "mlstm_chunk": check_mlstm(ops, ref, torch, gen)}
+           "mlstm_chunk": check_mlstm(ops, ref, torch, gen, mlstm)}
     timing = {"paged_attention": time_paged(ops, ref, torch, gen),
               "flash_attention": time_flash(ops, ref, torch, gen),
               "mlstm_chunk": time_mlstm(ops, ref, torch, gen)}
     for name, t in timing.items():
         log_timing(name, t)
+    # the prompt phase 6 profiles
+    log_timing("mlstm_chunk", time_mlstm(ops, ref, torch, gen, 256))
 
     log("== 4. reduced engines, GPU (kernels) against CPU (plain)")
     reduced_engine(torch, pkg, "granite-3-2b")

@@ -174,7 +174,10 @@ def mlstm_chunk(
     Any S: unlike the Pallas kernel's contract, a chunk that does not
     divide S is not refused; the last chunk is masked (see ``ref.py``).
     ``chunk`` is at most the kernel's tile, ``MAX_CHUNK`` tokens, on every
-    device.
+    device.  On the card the launcher picks the instantiation by
+    ``mlstm_chunk.mlstm_path``: bf16 at hd 64..256 in 64-token chunks runs
+    the two tensor-core passes (one launch counted), all else the CUDA-core
+    kernel.
     """
     if not 1 <= chunk <= _mlstm.MAX_CHUNK:
         raise ValueError(f"mlstm_chunk: chunk {chunk} is not in "

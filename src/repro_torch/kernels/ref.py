@@ -106,6 +106,22 @@ def empty_mlstm_state(b: int, h: int, hd: int, device=None):
             torch.full((b, h), MLSTM_NEG, **f32))
 
 
+def _mlstm_padded(q, k, v, i_raw, log_f, chunk: int):
+    """q, k * hd^-0.5, v and the gates in float32, padded to whole chunks
+    with tokens that neither decay nor add (log_f = 0, i_raw =
+    ``MLSTM_NEG``, q = k = v = 0)."""
+    s, hd = q.shape[2], q.shape[3]
+    pad = -s % chunk
+    qf, kf, vf = q.float(), k.float() * hd ** -0.5, v.float()
+    ig, fg = i_raw.float(), log_f.float()
+    if pad:
+        qf, kf, vf = (torch.nn.functional.pad(x, (0, 0, 0, pad))
+                      for x in (qf, kf, vf))
+        ig = torch.nn.functional.pad(ig, (0, pad), value=MLSTM_NEG)
+        fg = torch.nn.functional.pad(fg, (0, pad), value=0.0)
+    return qf, kf, vf, ig, fg
+
+
 def mlstm_chunk_ref(q, k, v, i_raw, log_f, state=None, *, chunk: int = 64):
     """Chunkwise-parallel mLSTM; returns ``(h, (C, n, m))``.
 
@@ -118,20 +134,13 @@ def mlstm_chunk_ref(q, k, v, i_raw, log_f, state=None, *, chunk: int = 64):
     """
     b, h, s, hd = q.shape
     dev = q.device
-    pad = -s % chunk
-    qf, kf, vf = q.float(), k.float() * hd ** -0.5, v.float()
-    ig, fg = i_raw.float(), log_f.float()
-    if pad:
-        qf, kf, vf = (torch.nn.functional.pad(x, (0, 0, 0, pad))
-                      for x in (qf, kf, vf))
-        ig = torch.nn.functional.pad(ig, (0, pad), value=MLSTM_NEG)
-        fg = torch.nn.functional.pad(fg, (0, pad), value=0.0)
+    qf, kf, vf, ig, fg = _mlstm_padded(q, k, v, i_raw, log_f, chunk)
     c_st, n_st, m_st = state if state is not None else empty_mlstm_state(
         b, h, hd, dev)
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
     neg_inf = torch.full((), -torch.inf, device=dev)
     outs = []
-    for c0 in range(0, s + pad, chunk):
+    for c0 in range(0, qf.shape[2], chunk):
         sl = slice(c0, c0 + chunk)
         q_c, k_c, v_c = qf[:, :, sl], kf[:, :, sl], vf[:, :, sl]
         i_c, f_c = ig[:, :, sl], fg[:, :, sl]
@@ -157,3 +166,82 @@ def mlstm_chunk_ref(q, k, v, i_raw, log_f, state=None, *, chunk: int = 64):
         m_st = m_new
     out = torch.cat(outs, dim=2)[:, :, :s]
     return out.to(q.dtype), (c_st, n_st, m_st)
+
+
+def mlstm_states_pass_ref(k, v, i_raw, log_f, state=None, *,
+                          chunk: int = 64):
+    """The first pass of the two-pass chunkwise mLSTM: the chunk walk from
+    the gates, k and v alone.  Returns ``(starts, final)``: every chunk's
+    starting ``(C (B,H,NC,hd,hd), n (B,H,NC,hd), m (B,H,NC))``, chunk 0's
+    being ``state``, and the final ``(C, n, m)``; NC = ceil(S / chunk).
+    The handoff is ``mlstm_chunk_ref``'s, term for term."""
+    b, h, s, hd = k.shape
+    dev = k.device
+    _, kf, vf, ig, fg = _mlstm_padded(k, k, v, i_raw, log_f, chunk)
+    nc = kf.shape[2] // chunk
+    kc = kf.reshape(b, h, nc, chunk, hd)
+    vc = vf.reshape(b, h, nc, chunk, hd)
+    fcum = torch.cumsum(fg.reshape(b, h, nc, chunk), dim=-1)   # F_t
+    # F_last - F_j + i_j, whose max and weights the handoff takes
+    u = fcum[..., -1:] - fcum + ig.reshape(b, h, nc, chunk)
+    c_st, n_st, m_st = state if state is not None else empty_mlstm_state(
+        b, h, hd, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    starts = (torch.empty((b, h, nc, hd, hd), **f32),
+              torch.empty((b, h, nc, hd), **f32),
+              torch.empty((b, h, nc), **f32))
+    for j in range(nc):
+        for start, x in zip(starts, (c_st, n_st, m_st)):
+            start[:, :, j] = x
+        m_inter = fcum[:, :, j, -1] + m_st
+        m_new = torch.maximum(u[:, :, j].amax(dim=-1), m_inter)
+        wj = torch.exp(u[:, :, j] - m_new[..., None])
+        decay = torch.exp(m_inter - m_new)
+        kw = kc[:, :, j] * wj[..., None]
+        c_st = (decay[..., None, None] * c_st
+                + kw.transpose(-1, -2) @ vc[:, :, j])
+        n_st = decay[..., None] * n_st + kw.sum(dim=-2)
+        m_st = m_new
+    return starts, (c_st, n_st, m_st)
+
+
+def mlstm_outputs_pass_ref(q, k, v, i_raw, log_f, starts, *,
+                           chunk: int = 64):
+    """The second pass: every chunk's h at once from its starting
+    ``(C, n, m)`` (``mlstm_states_pass_ref``'s ``starts``); no chunk reads
+    another.  Returns h (B, H, S, hd) in q's dtype."""
+    b, h, s, hd = q.shape
+    dev = q.device
+    qf, kf, vf, ig, fg = _mlstm_padded(q, k, v, i_raw, log_f, chunk)
+    nc = qf.shape[2] // chunk
+    qc, kc, vc = (x.reshape(b, h, nc, chunk, hd) for x in (qf, kf, vf))
+    ic = ig.reshape(b, h, nc, chunk)
+    fcum = torch.cumsum(fg.reshape(b, h, nc, chunk), dim=-1)
+    c0, n0, m0 = starts
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
+    d = fcum[..., :, None] - fcum[..., None, :] + ic[..., None, :]
+    d = torch.where(causal, d, torch.full((), -torch.inf, device=dev))
+    m_inter = fcum + m0[..., None]
+    m_t = torch.maximum(d.amax(dim=-1), m_inter)
+    w = torch.exp(d - m_t[..., None])
+    inter = torch.exp(m_inter - m_t)
+    sw = (qc @ kc.transpose(-1, -2)) * w
+    num = sw @ vc + inter[..., None] * (qc @ c0)
+    den_sum = sw.sum(dim=-1) + inter * (qc @ n0[..., None])[..., 0]
+    den = torch.maximum(den_sum.abs(), torch.exp(-m_t))
+    out = (num / den[..., None]).reshape(b, h, nc * chunk, hd)[:, :, :s]
+    return out.to(q.dtype)
+
+
+def mlstm_chunk_twopass_ref(q, k, v, i_raw, log_f, state=None, *,
+                            chunk: int = 64):
+    """What the tensor-core mLSTM kernel computes, in plain PyTorch: the
+    states pass, then the outputs pass from its chunks' starting states.
+    Same arguments and result as ``mlstm_chunk_ref``.  (The kernel carries
+    w v, each chunk's starting C and q.k^T * W to its bf16 tensor-core
+    products as hi + lo pairs, exact to about 2^-16; this version keeps them
+    in float32.)"""
+    starts, final = mlstm_states_pass_ref(k, v, i_raw, log_f, state,
+                                          chunk=chunk)
+    return mlstm_outputs_pass_ref(q, k, v, i_raw, log_f, starts,
+                                  chunk=chunk), final

@@ -15,8 +15,10 @@ Attention runs through the CUDA kernels where the JAX engine ran plain jnp:
   hides from the real rows; padded rows are thrown away by ``_gather_last``
   and masked by ``_fill_kv``, so the logits and the valid cache rows match;
 * decode (``dense_block_decode``, full cache) calls ``paged_gqa_decode``
-  over the slot cache viewed as pages, slot b's block table being
-  ``b*T/bs + arange(T/bs)`` and its length ``pos + 1``.  That is exact while
+  over the slot cache viewed as pages of ``decode_page(T)`` tokens (16, or
+  the largest divisor of T below it, so that any cache length views as
+  whole pages), slot b's block table being ``b*T/bs + arange(T/bs)`` and
+  its length ``pos + 1``.  That is exact while
   every slot's ``kv_pos`` row is ``j`` at each index ``j <= pos`` and -1 or
   beyond ``pos`` after it, which the engine keeps (``check_slot_contiguous``
   asserts it when ``Model(debug_checks=True)``);
@@ -57,7 +59,8 @@ from repro_torch.models.layers import (
     rms_norm,
 )
 
-#: tokens per page when decode attention views a slot cache as pages
+#: tokens per page when decode attention views a slot cache as pages, for
+#: every cache length that it divides (``decode_page``)
 DECODE_PAGE = 16
 #: prefill attention pads S to a multiple of this and uses it as the flash
 #: kernel's block size (the engine's prompt bucket is 64 tokens)
@@ -171,17 +174,21 @@ def _prefill_attention(q, k, v, window: int):
     return out[:, :s] if pad else out
 
 
+def decode_page(t: int) -> int:
+    """Tokens per page of a T-row slot cache's view: ``DECODE_PAGE`` where
+    it divides T, else the largest divisor of T below it (10 at T 100, 1 at
+    a prime T such as 97), so that the view holds whole pages at any cache
+    length.  The paged kernel takes any page size."""
+    return next(bs for bs in range(min(DECODE_PAGE, t), 0, -1)
+                if t % bs == 0)
+
+
 def slot_pages(b: int, t: int, pos):
-    """The slot cache viewed as pages: slot b's block table
-    ``b*T/bs + arange(T/bs)`` (B, T/bs) and lengths ``pos + 1`` (B,), both
-    int32.  A decode step builds them once and hands them to every
-    layer."""
-    if t % DECODE_PAGE:
-        raise ValueError(
-            f"cache length {t} is not a multiple of the decode page size "
-            f"{DECODE_PAGE}"
-        )
-    n_pages = t // DECODE_PAGE
+    """The slot cache viewed as pages of ``bs = decode_page(T)`` tokens:
+    slot b's block table ``b*T/bs + arange(T/bs)`` (B, T/bs) and lengths
+    ``pos + 1`` (B,), both int32.  A decode step builds them once and hands
+    them to every layer."""
+    n_pages = t // decode_page(t)
     tables = torch.arange(b * n_pages, dtype=torch.int32,
                           device=pos.device).view(b, n_pages)
     return tables, (pos + 1).to(torch.int32)
@@ -195,12 +202,12 @@ def _decode_attention(q, k_cache, v_cache, pos, pages=None):
     if pages is None:
         pages = slot_pages(b, t, pos)
     tables, lengths = pages
-    n_pages = t // DECODE_PAGE
+    bs = decode_page(t)
     out = paged_gqa_decode(
         q[:, 0],
-        k_cache.view(b * n_pages, DECODE_PAGE, n_kv, hd),
-        v_cache.view(b * n_pages, DECODE_PAGE, n_kv, hd),
-        tables, lengths, block_size=DECODE_PAGE,
+        k_cache.view(b * (t // bs), bs, n_kv, hd),
+        v_cache.view(b * (t // bs), bs, n_kv, hd),
+        tables, lengths, block_size=bs,
     )
     return out[:, None]
 

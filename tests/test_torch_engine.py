@@ -157,6 +157,19 @@ def test_engine_matches_jax(engines, sched, pool):
         assert jax_run[0]["swaps"] > 0, "pool 256 must force swaps"
 
 
+@pytest.mark.parametrize("sched,pool", [("justitia", 4096), ("vtc", 256)])
+def test_engine_matches_jax_at_cache_len_100(engines, sched, pool):
+    """A cache length that the 16-token decode page does not divide: the
+    port decodes over pages of 10 tokens and serves as the JAX engine
+    does."""
+    jax_run, torch_run = run_both(engines, sched, pool_tokens=pool,
+                                  cache_len=100)
+    assert_same(jax_run, torch_run)
+    assert torch_run[2].cache["k"].shape[2] == 100
+    if pool == 256:
+        assert jax_run[0]["swaps"] > 0, "pool 256 must force swaps"
+
+
 def test_engine_watermark_matches_jax(engines):
     jax_run, torch_run = run_both(engines, "justitia", n_agents=8,
                                   pool_tokens=512,

@@ -25,6 +25,7 @@ from repro_torch.models.transformer import (
     DECODE_PAGE,
     _decode_attention,
     check_slot_contiguous,
+    decode_page,
 )
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -122,11 +123,13 @@ def test_flash_prefill_rejects_misaligned_seq():
                            block_k=64, interpret=True)
 
 
-@pytest.mark.parametrize("launcher", ["paged", "flash", "mlstm"])
+@pytest.mark.parametrize("launcher",
+                         ["paged", "flash", "mlstm", "mlstm_tensor_core"])
 def test_cuda_launchers_refuse_cpu_tensors(launcher):
     """The CUDA path never quietly runs on CPU tensors: the launchers check
     the device before touching the C entry point (which is never called
-    here)."""
+    here).  ``mlstm_tensor_core`` gives the mLSTM launcher what its rule
+    sends to the two tensor-core passes (bf16, hd 64, 64-token chunks)."""
     def no_call(*_):
         raise AssertionError("the kernel entry point must not be reached")
 
@@ -139,9 +142,13 @@ def test_cuda_launchers_refuse_cpu_tensors(launcher):
                             torch.ones((1,), dtype=torch.int32))
         elif launcher == "flash":
             flash_attention(no_call, q, q, q)
-        else:
+        elif launcher == "mlstm":
             g = torch.zeros((1, 2, 2))
             mlstm_chunk(no_call, q, q, q, g, g)
+        else:
+            x = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16)
+            g = torch.zeros((1, 2, 64))
+            mlstm_chunk(no_call, x, x, x, g, g, chunk=64)
 
 
 @pytest.mark.parametrize("hd,dtype,exc,match", [
@@ -229,13 +236,12 @@ def _slot_cache(rng, b, t, nkv, hd, lengths):
     return kc, vc, kv_pos
 
 
-def test_decode_through_pages_equals_dense_attention():
-    """Paged decode over a slot cache with block table ``b*T/bs + arange``
-    and length ``pos + 1`` equals the masked dense-cache attention."""
+def _paged_and_dense(t):
+    """Decode through pages over a T-row slot cache, and the masked dense
+    attention of JAX and of the port over the same cache."""
     b, nh, nkv, hd = 3, 4, 2, 32
-    t = 4 * DECODE_PAGE
     rng = np.random.default_rng(3)
-    pos = np.array([0, 17, t - 1], np.int32)
+    pos = np.array([0, min(17, t - 1), t - 1], np.int32)
     kc, vc, kv_pos = _slot_cache(rng, b, t, nkv, hd, pos + 1)
     q = _np32(rng, b, 1, nh, hd)
     dense_j = jax_gqa_attention(
@@ -253,11 +259,19 @@ def test_decode_through_pages_equals_dense_attention():
     np.testing.assert_allclose(paged.numpy(), dense_t.numpy(), **TOL)
 
 
+def test_decode_through_pages_equals_dense_attention():
+    """Paged decode over a slot cache with block table ``b*T/bs + arange``
+    and length ``pos + 1`` equals the masked dense-cache attention."""
+    _paged_and_dense(4 * DECODE_PAGE)
+
+
 def test_decode_attention_needs_whole_pages():
-    x = torch.zeros((1, DECODE_PAGE + 1, 2, 32))
-    with pytest.raises(ValueError, match="page"):
-        _decode_attention(torch.zeros((1, 1, 4, 32)), x, x,
-                          torch.zeros((1,), dtype=torch.int32))
+    """A cache length that ``DECODE_PAGE`` does not divide is viewed as
+    whole pages of ``decode_page(T)`` tokens (1 at the primes 17 and 97, 10
+    at 100) and decodes to the masked dense attention."""
+    for t, bs in ((DECODE_PAGE + 1, 1), (97, 1), (100, 10)):
+        assert decode_page(t) == bs
+        _paged_and_dense(t)
 
 
 @pytest.mark.parametrize("hole", ["gap", "stale_ahead_ok"])

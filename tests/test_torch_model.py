@@ -78,23 +78,23 @@ def _jitted(jm, name):
     return jax.jit(getattr(jm, name), static_argnames=static)
 
 
-def _run_prefill(models, chunk):
+def _run_prefill(models, chunk, cache_len=CACHE_LEN):
     jm, jp, tm, tp = models
     toks, lens = _prompt(0)
     if chunk is None:
         lj, cj = _jitted(jm, "prefill")(
             jp, {"tokens": jnp.asarray(toks), "lens": jnp.asarray(lens)},
-            cache_len=CACHE_LEN)
+            cache_len=cache_len)
         lt, ct = tm.prefill(tp, {"tokens": torch.from_numpy(toks),
-                                 "lens": torch.from_numpy(lens)}, CACHE_LEN)
+                                 "lens": torch.from_numpy(lens)}, cache_len)
     else:
         lj, cj = _jitted(jm, "prefill_chunked")(
             jp, {"tokens": jnp.asarray(toks), "lens": jnp.asarray(lens)},
-            cache_len=CACHE_LEN, chunk=chunk,
+            cache_len=cache_len, chunk=chunk,
         )
         lt, ct = tm.prefill_chunked(
             tp, {"tokens": torch.from_numpy(toks),
-                 "lens": torch.from_numpy(lens)}, CACHE_LEN, chunk,
+                 "lens": torch.from_numpy(lens)}, cache_len, chunk,
         )
     return lj, cj, lt, ct, lens
 
@@ -114,11 +114,27 @@ def test_decode_steps_match_jax(models, chunk):
     """Eight greedy decode steps from each prefill: logits and caches agree
     with JAX at every step, and the slot-contiguity precondition of paged
     decode holds after every step."""
+    _decode_steps(models, chunk, CACHE_LEN, 8)
+
+
+@pytest.mark.parametrize("cache_len", [100, 97])
+def test_decode_at_any_cache_len_matches_jax(models, cache_len):
+    """A cache length that the 16-token decode page does not divide (pages
+    of 10 tokens at 100, of 1 at the prime 97), served as JAX serves it:
+    prefill, then decode steps up to the cache's last row."""
+    _decode_steps(models, None, cache_len)
+
+
+def _decode_steps(models, chunk, cache_len, n_steps=None):
+    """``n_steps`` greedy decode steps after a prefill (None: until the
+    longest row has filled the cache), compared with JAX at every step."""
     jm, jp, tm, tp = models
-    lj, cj, lt, ct, lens = _run_prefill(models, chunk)
+    lj, cj, lt, ct, lens = _run_prefill(models, chunk, cache_len)
+    if n_steps is None:
+        n_steps = cache_len - int(lens.max())
     pos = lens.copy()
     tok = np.asarray(jnp.argmax(lj[:, 0], -1)).astype(np.int32)[:, None]
-    for _ in range(8):
+    for _ in range(n_steps):
         lj, cj = _jitted(jm, "decode")(jp, cj, jnp.asarray(tok),
                                        jnp.asarray(pos))
         lt, ct = tm.decode(tp, ct, torch.from_numpy(tok),

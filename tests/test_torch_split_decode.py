@@ -9,7 +9,9 @@
   64 or 128 with S a multiple of 64;
 * both new designs' shared memory fits a Hopper block for every head dim
   that ``chip_smoke.py`` checks;
-* the decode step builds its page table once and hands it to every layer.
+* the decode step builds its page table once and hands it to every layer,
+  at any cache length: 16-token pages wherever 16 divides it, as before,
+  else the largest page size that divides it.
 
 Tolerance: 2e-5 absolute and relative at float32, the tolerance of
 ``tests/test_kernels.py``.  The CUDA kernels themselves need the card:
@@ -29,6 +31,7 @@ from repro_torch.kernels.flash_attention import smem_bytes as flash_smem
 from repro_torch.kernels.flash_attention import tc_heads
 from repro_torch.kernels.paged_attention import (
     MAX_SPLIT,
+    MIN_PAGES_PER_SPLIT,
     split_plan,
 )
 from repro_torch.kernels.paged_attention import smem_bytes as paged_smem
@@ -215,3 +218,50 @@ def test_decode_builds_the_page_table_once_per_step(monkeypatch):
                                model._logits(params, x).numpy(), **TOL)
     for key in ("k", "v", "kv_pos"):
         assert torch.equal(cache_a[key], cache_b[key])
+
+
+@pytest.mark.parametrize("t,bs", [(96, 16), (512, 16), (160, 16), (100, 10),
+                                  (97, 1), (17, 1), (50, 10)])
+def test_decode_pages_at_any_cache_len(monkeypatch, t, bs):
+    """One decode step at cache length T: every layer's paged decode gets
+    the slot cache as ``T/bs`` whole pages of ``bs`` tokens, the table
+    ``arange(B*T/bs)`` and lengths ``pos + 1`` (for a multiple of 16,
+    exactly the 16-token pages of before), one launch per layer; the split
+    plan takes the page count by the rule of every cache length."""
+    cfg = get_config("granite-3-2b").reduced(n_layers=2)
+    model = Model(cfg, device="cpu", debug_checks=True)
+    params = model.init(seed=0)
+    b = 2
+    cache = model.init_cache(params, b, t)
+    pos = torch.tensor([0, t - 1], dtype=torch.int32)
+    seen = []
+    real_paged = transformer.paged_gqa_decode
+
+    def seeing_paged(q, kp, vp, tables, lengths, **kw):
+        seen.append((tuple(kp.shape), kw["block_size"], tables, lengths))
+        return real_paged(q, kp, vp, tables, lengths, **kw)
+
+    monkeypatch.setattr(transformer, "paged_gqa_decode", seeing_paged)
+    # rows 0 .. pos of each slot valid, as the engine keeps them
+    j = torch.arange(t, dtype=torch.int32)
+    cache["kv_pos"][:] = torch.where(j <= pos[:, None], j, -1)
+    model.decode(params, cache, torch.zeros((b, 1), dtype=torch.int32), pos)
+    assert transformer.decode_page(t) == bs
+    assert len(seen) == cfg.n_layers
+    n_pages = t // bs
+    for shape, block_size, tables, lengths in seen:
+        assert shape == (b * n_pages, bs, cfg.n_kv_heads, cfg.head_dim)
+        assert block_size == bs
+        assert torch.equal(tables, torch.arange(
+            b * n_pages, dtype=torch.int32).view(b, n_pages))
+        assert torch.equal(lengths, pos + 1)
+    n_split, per = split_plan(n_pages)
+    assert n_split == min(MAX_SPLIT, -(-n_pages // MIN_PAGES_PER_SPLIT))
+    assert (n_split - 1) * per < n_pages <= n_split * per
+
+
+def test_every_cache_len_views_as_whole_pages():
+    for t in range(1, 600):
+        bs = transformer.decode_page(t)
+        assert t % bs == 0 and 1 <= bs <= transformer.DECODE_PAGE
+        assert (bs == transformer.DECODE_PAGE) == (t % 16 == 0)
