@@ -23,8 +23,9 @@
 // Layouts: q, k, v and h are (B, H, S, hd), each given by strides in
 // elements for (batch, head, sequence) with hd contiguous and rows on
 // 16-byte boundaries, so (B, S, H, hd) projections pass as transposed views;
-// i_raw and log_f are contiguous (B, H, S) float32; C (B,H,hd,hd), n (B,H,hd)
-// and m (B,H) are contiguous float32.  h has q's type.
+// i_raw and log_f are (B, H, S) float32, also given by strides (the model
+// passes views of its (B, S, H) gates, read in place); C (B,H,hd,hd),
+// n (B,H,hd) and m (B,H) are contiguous float32.  h has q's type.
 //
 // Any S: the last chunk is padded with tokens that neither decay nor add
 // (log f = 0, i = -1e30, q = k = v = 0), so its final row carries the state
@@ -128,6 +129,23 @@ struct Strides {
   int64_t v[12];  // (batch, head, seq) for q, k, v, out
 };
 
+struct GateStrides {
+  int64_t v[6];  // (batch, head, seq) for i_raw, log_f
+};
+
+// one (sequence, head)'s gates and their strides along the sequence
+struct Gates {
+  const float* i;
+  const float* f;
+  int64_t si, sf;
+};
+
+__device__ __forceinline__ Gates gates_at(const float* ig, const float* lf,
+                                          const GateStrides& g, int b, int h) {
+  return {ig + b * g.v[0] + h * g.v[1], lf + b * g.v[3] + h * g.v[4], g.v[2],
+          g.v[5]};
+}
+
 // Products run on an 8 x 2 register tile per thread: rows tr + 8a of the
 // chunk (or of a slab of C) and columns tc + 32b, with tr the warp and tc
 // the lane, so a warp reads one broadcast row operand and 32 consecutive
@@ -140,7 +158,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunk_kernel(
     const float* __restrict__ m_in, T* __restrict__ out,
     float* __restrict__ c_out, float* __restrict__ n_out,
     float* __restrict__ m_out, int heads, int seq, int hd, int chunk, int tv,
-    float scale, Strides st) {
+    float scale, Strides st, GateStrides gs) {
   extern __shared__ float smem[];
   float* c_s = smem;                     // hd x kTile: this block's C slice
   float* q_s = c_s + hd * kTile;         // kMaxChunk x kPad: q slab
@@ -171,8 +189,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunk_kernel(
   const T* k_b = k + b * st.v[3] + h * st.v[4];
   const T* v_b = v + b * st.v[6] + h * st.v[7];
   T* o_b = out + b * st.v[9] + h * st.v[10];
-  const float* ig_b = ig + bh * seq;
-  const float* lf_b = lf + bh * seq;
+  const Gates g = gates_at(ig, lf, gs, b, h);
 
   // rows past the chunk, columns past the tile: zero for good, so every
   // product below may run over the full 64 x 64 tile
@@ -196,8 +213,8 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunk_kernel(
   for (int t0 = 0; t0 < seq; t0 += chunk) {
     const int nt = min(chunk, seq - t0);
     if (tid < chunk) {
-      i_s[tid] = tid < nt ? ig_b[t0 + tid] : kNeg;
-      l_s[tid] = tid < nt ? lf_b[t0 + tid] : 0.f;
+      i_s[tid] = tid < nt ? g.i[(t0 + tid) * g.si] : kNeg;
+      l_s[tid] = tid < nt ? g.f[(t0 + tid) * g.sf] : 0.f;
     }
     __syncthreads();
     if (tid < chunk) {  // F_t, summed in token order
@@ -414,12 +431,14 @@ int launch(const void* q, const void* k, const void* v, const float* ig,
   if (err != cudaSuccess) return (int)err;
   Strides st;
   for (int i = 0; i < 12; ++i) st.v[i] = strides[i];
+  GateStrides gs;
+  for (int i = 0; i < 6; ++i) gs.v[i] = strides[12 + i];
   dim3 grid(hd / tv, heads, batch);
   mlstm_chunk_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), ig, lf, c_in, n_in, m_in,
       static_cast<T*>(out), c_out, n_out, m_out, heads, seq, hd, chunk, tv,
-      (float)(1.0 / sqrt((double)hd)), st);
+      (float)(1.0 / sqrt((double)hd)), st, gs);
   return (int)cudaGetLastError();
 }
 
@@ -471,13 +490,21 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 // one warp's share of a chunk's gates: lane l holds tokens t and t + 1
 // (t = chunk start + 2l), padded past S with tokens that neither decay
 // nor add
-__device__ __forceinline__ void load_gates(const float* ig, const float* lf,
-                                           int t, int seq, float (&i)[2],
-                                           float (&l)[2]) {
+__device__ __forceinline__ void load_gates(const Gates& g, int t, int seq,
+                                           float (&i)[2], float (&l)[2]) {
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
-    i[x] = t + x < seq ? __ldg(ig + t + x) : kNeg;
-    l[x] = t + x < seq ? __ldg(lf + t + x) : 0.f;
+    i[x] = t + x < seq ? __ldg(g.i + (t + x) * g.si) : kNeg;
+    l[x] = t + x < seq ? __ldg(g.f + (t + x) * g.sf) : 0.f;
+  }
+}
+
+// the warp's lanes prefetch into L2 the n elements from p on, a 128-byte
+// line each
+__device__ __forceinline__ void prefetch_l2(const float* p, int64_t n,
+                                            int lane) {
+  for (int64_t e = lane * 32; e < n; e += 32 * 32) {
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p + e));
   }
 }
 
@@ -540,13 +567,12 @@ __global__ void __launch_bounds__(kStatesThreads, 1) mlstm_chunk_states_kernel(
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_c, const float* __restrict__ ig,
-    const float* __restrict__ lf, const float* __restrict__ c_in,
+    const float* __restrict__ lf, GateStrides gs,
+    const float* __restrict__ c_in,
     const float* __restrict__ n_in, const float* __restrict__ m_in,
     float* __restrict__ n_chunks, float* __restrict__ m_chunks,
     float* __restrict__ c_out, float* __restrict__ n_out,
-    float* __restrict__ m_out, int heads, int seq, int hd, float scale,
-    int empty) {
-  if (empty) return;
+    float* __restrict__ m_out, int heads, int seq, int hd, float scale) {
   extern __shared__ uint8_t smem_raw[];
   // stage s: the k tile, the v tile (w v's hi part once scaled), w v's lo
   // part; then two chunks' staging tiles of C, hi and lo
@@ -583,13 +609,10 @@ __global__ void __launch_bounds__(kStatesThreads, 1) mlstm_chunk_states_kernel(
     // kStages chunks' K/V tiles by TMA, then per chunk the gate weights,
     // m for the outputs pass, and the refill of the stage the other two
     // warpgroups have just released
-    const float* ig_b = ig + (int64_t)bh * seq;
-    const float* lf_b = lf + (int64_t)bh * seq;
+    const Gates seq_gates = gates_at(ig, lf, gs, b, h);
     const bool owns_m = col_tile == 0 && row_tile == 0 && lane == 0;
-    for (int t = lane * 32; t < seq; t += 32 * 32) {
-      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(ig_b + t));
-      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(lf_b + t));
-    }
+    prefetch_l2(seq_gates.i, (int64_t)(seq - 1) * seq_gates.si + 1, lane);
+    prefetch_l2(seq_gates.f, (int64_t)(seq - 1) * seq_gates.sf + 1, lane);
     auto load_tiles = [&](int k) {
       uint8_t* dst = tiles + (k % kStages) * 3 * kTileBytes;
       uint64_t* bar = &loaded[k % kStages];
@@ -607,7 +630,7 @@ __global__ void __launch_bounds__(kStatesThreads, 1) mlstm_chunk_states_kernel(
       float gi[kStages][2], gl[kStages][2];
 #pragma unroll
       for (int u = 0; u < kStages; ++u) {
-        load_gates(ig_b, lf_b, (k0 + u) * kC + 2 * lane, seq, gi[u], gl[u]);
+        load_gates(seq_gates, (k0 + u) * kC + 2 * lane, seq, gi[u], gl[u]);
       }
       // F_last and max_j (F_last - F_j + i_j) do not depend on m: all
       // kStages chunks' scans and maxima at once
@@ -836,10 +859,10 @@ __global__ void __launch_bounds__(kOutputsThreads, 1)
                                const __grid_constant__ CUtensorMap tm_o,
                                const float* __restrict__ ig,
                                const float* __restrict__ lf,
+                               GateStrides gs,
                                const float* __restrict__ n_chunks,
                                const float* __restrict__ m_chunks, int heads,
-                               int seq, float scale, int empty) {
-  if (empty) return;
+                               int seq, float scale) {
   extern __shared__ uint8_t smem_raw[];
   constexpr int nb = NB;  // column blocks of a q or k row, row blocks of C
   constexpr int hd = 64 * NB;
@@ -888,8 +911,7 @@ __global__ void __launch_bounds__(kOutputsThreads, 1)
     }
   } else if (tid < 64) {
     float gi[2], gl[1][2], f[1][2];
-    load_gates(ig + (int64_t)bh * seq, lf + (int64_t)bh * seq,
-               k * kC + 2 * lane, seq, gi, gl[0]);
+    load_gates(gates_at(ig, lf, gs, b, h), k * kC + 2 * lane, seq, gi, gl[0]);
     chunk_cumsum(gl, f);
     f_s[2 * lane] = f[0][0];
     f_s[2 * lane + 1] = f[0][1];
@@ -1082,12 +1104,12 @@ struct Outputs {
   CUtensorMap tm_q, tm_k, tm_v, tm_c, tm_o;
   const float* ig;
   const float* lf;
+  GateStrides gs;
   const float* n_chunks;
   const float* m_chunks;
   dim3 grid;
   int heads, seq;
   float scale;
-  int empty;
 };
 
 template <int NB>
@@ -1096,8 +1118,8 @@ int launch_outputs(const Outputs& a, cudaStream_t stream) {
   cudaError_t e = allow_smem(mlstm_chunk_outputs_kernel<NB>, smem);
   if (e != cudaSuccess) return (int)e;
   mlstm_chunk_outputs_kernel<NB><<<a.grid, kOutputsThreads, smem, stream>>>(
-      a.tm_q, a.tm_k, a.tm_v, a.tm_c, a.tm_o, a.ig, a.lf, a.n_chunks,
-      a.m_chunks, a.heads, a.seq, a.scale, a.empty);
+      a.tm_q, a.tm_k, a.tm_v, a.tm_c, a.tm_o, a.ig, a.lf, a.gs, a.n_chunks,
+      a.m_chunks, a.heads, a.seq, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -1106,7 +1128,7 @@ int launch(const void* q, const void* k, const void* v, const float* ig,
            const float* m_in, void* out, float* c_out, float* n_out,
            float* m_out, void* c_chunks, float* n_chunks, float* m_chunks,
            int batch, int heads, int seq, int hd, const int64_t* st,
-           int empty, cudaStream_t stream) {
+           cudaStream_t stream) {
   if (hd % 64 || hd > 256) return (int)cudaErrorInvalidValue;
   const int nc = (seq + kC - 1) / kC;
   CUtensorMap tm_q{}, tm_k{}, tm_v{}, tm_o{}, tm_c{};
@@ -1142,14 +1164,16 @@ int launch(const void* q, const void* k, const void* v, const float* ig,
   if (e != cudaSuccess) return (int)e;
   const float scale = (float)(1.0 / sqrt((double)hd));
   const int tiles = hd / kC;
+  GateStrides gs;
+  for (int i = 0; i < 6; ++i) gs.v[i] = st[12 + i];
   mlstm_chunk_states_kernel<<<dim3(tiles, tiles, batch * heads),
                               kStatesThreads, smem, stream>>>(
-      tm_k, tm_v, tm_c, ig, lf, c_in, n_in, m_in, n_chunks, m_chunks, c_out,
-      n_out, m_out, heads, seq, hd, scale, empty);
+      tm_k, tm_v, tm_c, ig, lf, gs, c_in, n_in, m_in, n_chunks, m_chunks,
+      c_out, n_out, m_out, heads, seq, hd, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || nc == 0) return (int)e;
-  const Outputs a{tm_q, tm_k, tm_v, tm_c, tm_o, ig, lf, n_chunks, m_chunks,
-                  dim3(tiles, nc, batch * heads), heads, seq, scale, empty};
+  const Outputs a{tm_q, tm_k, tm_v, tm_c, tm_o, ig, lf, gs, n_chunks,
+                  m_chunks, dim3(tiles, nc, batch * heads), heads, seq, scale};
   switch (tiles) {
     case 1:
       return launch_outputs<1>(a, stream);
@@ -1166,23 +1190,21 @@ int launch(const void* q, const void* k, const void* v, const float* ig,
 }  // namespace
 }  // namespace repro_torch
 
-// strides: 12 int64 in elements, (batch, head, seq) for q, k, v, out.
+// strides: 18 int64 in elements, (batch, head, seq) for q, k, v, out,
+// i_raw, log_f.
 // c_in/n_in/m_in may all be null for the empty state.  chunk is 1..64.
 // tensor_core 0 takes the cuda_core kernel; 1 the two tensor-core passes,
 // for bf16 with hd a multiple of 64 and chunk 64 only, with the chunks'
 // starting states in c_chunks (B, H, NC, 2, hd, hd) bf16 (C as hi + lo),
 // n_chunks (B, H, NC, hd) and m_chunks (B, H, NC) float32, NC =
-// ceil(seq / 64).  empty 1
-// launches the tensor-core passes' grids with no work (their launch floor,
-// for timing; nothing is written).  Returns the cudaError_t of the launch
-// (0 on success).
+// ceil(seq / 64).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int mlstm_chunk_launch(
     const void* q, const void* k, const void* v, const float* i_raw,
     const float* log_f, const float* c_in, const float* n_in,
     const float* m_in, void* out, float* c_out, float* n_out, float* m_out,
     void* c_chunks, float* n_chunks, float* m_chunks, int batch, int heads,
     int seq, int hd, int chunk, const int64_t* strides, int is_bf16,
-    void* stream, int tensor_core, int empty) {
+    void* stream, int tensor_core) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core) {
     if (!is_bf16 || chunk != repro_torch::tc::kC) {
@@ -1191,9 +1213,8 @@ extern "C" int mlstm_chunk_launch(
     return repro_torch::tc::launch(q, k, v, i_raw, log_f, c_in, n_in, m_in,
                                    out, c_out, n_out, m_out, c_chunks,
                                    n_chunks, m_chunks, batch, heads, seq, hd,
-                                   strides, empty, s);
+                                   strides, s);
   }
-  if (empty) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     return repro_torch::launch<__nv_bfloat16>(
         q, k, v, i_raw, log_f, c_in, n_in, m_in, out, c_out, n_out, m_out,

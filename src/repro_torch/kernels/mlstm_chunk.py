@@ -9,9 +9,10 @@ for CPU tensors and counts launches.
 
 Layouts: q, k, v (B, H, S, hd) in float32 or bfloat16, possibly transposed
 views of (B, S, H, hd) tensors (hd contiguous); i_raw, log_f (B, H, S)
-float32; state C (B, H, hd, hd), n (B, H, hd), m (B, H) float32.  The output
-h is (B, H, S, hd) in q's type, a transposed view of a contiguous
-(B, S, H, hd) buffer.
+float32, any strides (the model's are views of (B, S, H) gates, which the
+kernels read in place); state C (B, H, hd, hd), n (B, H, hd), m (B, H)
+float32.  The output h is (B, H, S, hd) in q's type, a transposed view of a
+contiguous (B, S, H, hd) buffer.
 
 Which instantiation runs is a rule on the arguments, ``mlstm_path``: bf16
 with hd a multiple of 64 and 64-token chunks takes the tensor-core kernel,
@@ -34,14 +35,15 @@ from repro_torch.kernels.paged_attention import check_float_inputs
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mlstm_chunk.cu"
 SYMBOL = "mlstm_chunk_launch"
 ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-               ctypes.c_int])
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
 #: the largest chunk the kernels' tiles hold
 MAX_CHUNK = 64
 #: the tensor-core kernel's chunk, and the rows and columns of its tiles
 TC_CHUNK = 64
 #: depth of the states pass's K/V ring
 TC_STAGES = 6
+#: threads of a block of each tensor-core pass, as the source sizes them
+THREADS = {"states": 288, "outputs": 128}
 PATHS = ("tensor_core", "cuda_core")
 
 
@@ -94,25 +96,23 @@ def grids(b: int, h: int, s: int, hd: int, path: str) -> dict:
     return {"cuda_core": hd // tile_cols(hd) * b * h}
 
 
-def _check_f32(name: str, t, shape, device) -> None:
+def _check_f32(name: str, t, shape, device, *, contiguous=True) -> None:
     if (t.dtype != torch.float32 or tuple(t.shape) != shape
-            or t.device != device or not t.is_contiguous()):
-        raise ValueError(f"mlstm_chunk: {name} must be a contiguous float32 "
-                         f"{shape} tensor on {device}, got {t.dtype} "
+            or t.device != device or (contiguous and not t.is_contiguous())):
+        kind = "contiguous float32" if contiguous else "float32"
+        raise ValueError(f"mlstm_chunk: {name} must be a {kind} {shape} "
+                         f"tensor on {device}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
 
 
 def mlstm_chunk(fn, q, k, v, i_raw, log_f, state=None, *,
-                chunk: int = MAX_CHUNK, path: str | None = None,
-                empty: bool = False):
+                chunk: int = MAX_CHUNK, path: str | None = None):
     """Launch the kernel through ``fn`` (the loaded C entry point) on CUDA
     tensors; returns ``(h, (C, n, m))``.
 
     ``path`` overrides ``mlstm_path`` (a check may run the CUDA-core kernel
     on what the rule sends to the tensor cores; the tensor-core kernel
-    takes only what the rule gives it).  ``empty`` launches the
-    tensor-core passes' grids with no work, for timing their launch floor:
-    the outputs are then not written.
+    takes only what the rule gives it).
     """
     b, h, s, hd = q.shape
     rule = mlstm_path(q.dtype, hd, chunk)
@@ -121,9 +121,6 @@ def mlstm_chunk(fn, q, k, v, i_raw, log_f, state=None, *,
         raise ValueError(f"mlstm_chunk: path {path!r} does not take "
                          f"{q.dtype} at hd {hd}, chunk {chunk}")
     tc = path == "tensor_core"
-    if empty and not tc:
-        raise ValueError("mlstm_chunk: empty launches are for the "
-                         "tensor-core path")
     is_bf16 = check_float_inputs("mlstm_chunk", hd, q, k, v)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"mlstm_chunk: k {tuple(k.shape)} and v "
@@ -132,7 +129,7 @@ def mlstm_chunk(fn, q, k, v, i_raw, log_f, state=None, *,
         raise ValueError("mlstm_chunk: head_dim must be contiguous")
     dev = q.device
     for name, t in (("i_raw", i_raw), ("log_f", log_f)):
-        _check_f32(name, t, (b, h, s), dev)
+        _check_f32(name, t, (b, h, s), dev, contiguous=False)
     shapes = ((b, h, hd, hd), (b, h, hd), (b, h))
     if state is not None:
         for name, t, shape in zip(("C", "n", "m"), state, shapes):
@@ -150,8 +147,9 @@ def mlstm_chunk(fn, q, k, v, i_raw, log_f, state=None, *,
                 torch.empty((b, h, nc, hd), dtype=torch.float32, device=dev),
                 torch.empty((b, h, nc), dtype=torch.float32, device=dev))
                if tc else None)
-    strides = (ctypes.c_int64 * 12)(
-        *(t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)))
+    strides = (ctypes.c_int64 * 18)(
+        *(t.stride(i) for t in (q, k, v, out, i_raw, log_f)
+          for i in (0, 1, 2)))
     c_in, n_in, m_in = ((t.data_ptr() for t in state) if state is not None
                         else (None, None, None))
     c_ch, n_ch, m_ch = ((t.data_ptr() for t in scratch) if tc
@@ -160,7 +158,7 @@ def mlstm_chunk(fn, q, k, v, i_raw, log_f, state=None, *,
              log_f.data_ptr(), c_in, n_in, m_in, out.data_ptr(),
              *(t.data_ptr() for t in new), c_ch, n_ch, m_ch, b, h, s, hd,
              chunk, ctypes.addressof(strides), is_bf16,
-             torch.cuda.current_stream(dev).cuda_stream, int(tc), int(empty))
+             torch.cuda.current_stream(dev).cuda_stream, int(tc))
     if err:
         raise RuntimeError(f"mlstm_chunk launch failed: CUDA error {err}")
     return out, new

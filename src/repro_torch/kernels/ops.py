@@ -185,9 +185,8 @@ def mlstm_chunk(
     if q.device.type == "cpu":
         return mlstm_chunk_ref(q, k, v, i_raw, log_f, state, chunk=chunk)
     out = _mlstm.mlstm_chunk(
-        kernel_library()["mlstm_chunk"], q, k, v,
-        i_raw.float().contiguous(), log_f.float().contiguous(), state,
-        chunk=chunk,
+        kernel_library()["mlstm_chunk"], q, k, v, i_raw.float(),
+        log_f.float(), state, chunk=chunk,
     )
     mlstm_chunk.launches += 1
     return out

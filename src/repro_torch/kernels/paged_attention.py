@@ -32,26 +32,31 @@ ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int])
 #: blocks of one cluster at most (the portable cluster size)
 MAX_SPLIT = 8
-#: pages a block walks at least, before the walk is split further (8 pages
+#: tokens a block walks at least, before the walk is split further (8 pages
 #: of 16 tokens measured faster than 4 at granite-3-2b's decode on an H100:
 #: half the blocks and partials to merge for a second round of loads in
-#: each block; PERF.md)
-MIN_PAGES_PER_SPLIT = 8
+#: each block; PERF.md).  Counted in tokens, so that a table of smaller
+#: pages splits as the same work in 16-token pages would.
+MIN_TOKENS_PER_SPLIT = 128
 #: q heads one block serves at most (more are split over clusters)
 MAX_HEADS = 4
 #: threads of a block
 THREADS = 128
 
 
-def split_plan(max_pages: int) -> tuple[int, int]:
+def split_plan(max_pages: int, block_size: int = 16) -> tuple[int, int]:
     """``(n_split, pages_per_split)``: the blocks of one cluster and the
-    contiguous pages each walks, from the block table's width alone (never
-    from the lengths on the device, so the wrapper never synchronises).
-    Every page of ``max_pages`` is covered exactly once, ``n_split`` is at
-    most ``MAX_SPLIT`` and no block's range lies wholly past the table."""
-    if max_pages < 1:
-        raise ValueError(f"max_pages {max_pages} must be at least 1")
-    n_split = min(MAX_SPLIT, -(-max_pages // MIN_PAGES_PER_SPLIT))
+    contiguous pages each walks, from the block table's width and page size
+    alone (never from the lengths on the device, so the wrapper never
+    synchronises).  Every page of ``max_pages`` is covered exactly once,
+    ``n_split`` is at most ``MAX_SPLIT``, each block walks at least
+    ``MIN_TOKENS_PER_SPLIT`` tokens where there are that many, and no
+    block's range lies wholly past the table."""
+    if max_pages < 1 or block_size < 1:
+        raise ValueError(f"max_pages {max_pages} and block_size "
+                         f"{block_size} must be at least 1")
+    n_split = min(MAX_SPLIT,
+                  -(-max_pages * block_size // MIN_TOKENS_PER_SPLIT))
     per = -(-max_pages // n_split)
     return -(-max_pages // per), per
 
@@ -113,7 +118,7 @@ def paged_attention(fn, q, k_pages, v_pages, block_tables, lengths, *,
             raise ValueError("paged_attention: block_tables (B, max_pages) "
                              "and lengths (B,) must be int32 on q's device")
     max_pages = block_tables.shape[1]
-    n_split, per = split_plan(max_pages)
+    n_split, per = split_plan(max_pages, bs)
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),

@@ -241,17 +241,17 @@ def test_grids_at_xlstm_350m_prefill():
     assert grids(1, 4, 512, 256, "cuda_core") == {"cuda_core": 16}
 
 
-@pytest.mark.parametrize("dtype,path,empty", [
-    (torch.float32, "tensor_core", False),   # the rule gives it cuda_core
-    (torch.bfloat16, "wgmma", False),        # no such path
-    (torch.bfloat16, "cuda_core", True),     # empty launches: tensor core
+@pytest.mark.parametrize("dtype,path,chunk", [
+    (torch.float32, "tensor_core", 64),   # the rule gives it cuda_core
+    (torch.bfloat16, "wgmma", 64),        # no such path
+    (torch.bfloat16, "tensor_core", 32),  # tensor core: 64-token chunks
 ])
-def test_launcher_refuses_a_path_the_rule_does_not_give(dtype, path, empty):
+def test_launcher_refuses_a_path_the_rule_does_not_give(dtype, path, chunk):
     """Checked before anything touches the device or the entry point."""
     def no_call(*_):
         raise AssertionError("the kernel entry point must not be reached")
 
     x = torch.zeros((1, 2, 64, 64), dtype=dtype)
     g = torch.zeros((1, 2, 64))
-    with pytest.raises(ValueError, match="path|empty"):
-        mlstm_chunk(no_call, x, x, x, g, g, chunk=64, path=path, empty=empty)
+    with pytest.raises(ValueError, match="path"):
+        mlstm_chunk(no_call, x, x, x, g, g, chunk=chunk, path=path)

@@ -31,7 +31,7 @@ from repro_torch.kernels.flash_attention import smem_bytes as flash_smem
 from repro_torch.kernels.flash_attention import tc_heads
 from repro_torch.kernels.paged_attention import (
     MAX_SPLIT,
-    MIN_PAGES_PER_SPLIT,
+    MIN_TOKENS_PER_SPLIT,
     split_plan,
 )
 from repro_torch.kernels.paged_attention import smem_bytes as paged_smem
@@ -127,6 +127,23 @@ def test_split_plan_covers_every_page_once(max_pages):
     assert covered == list(range(max_pages))
     # no block's range lies wholly past the table
     assert (n_split - 1) * per < max_pages
+
+
+@pytest.mark.parametrize("max_pages,bs,plan", [
+    (32, 16, (4, 8)),     # cache 512 in 16-token pages: 8 pages a block
+    (6, 16, (1, 6)),      # cache 96: one block
+    (64, 16, (8, 8)),
+    (10, 10, (1, 10)),    # cache 100 in 10-token pages: 100 tokens, one
+    (97, 1, (1, 97)),     # cache 97 in 1-token pages: one block
+    (100, 10, (8, 13)),   # cache 1000: 8 blocks of 130 tokens
+    (256, 1, (2, 128)),   # 128 one-token pages a block, as 8 pages of 16
+])
+def test_split_plan_counts_tokens(max_pages, bs, plan):
+    """Blocks walk at least ``MIN_TOKENS_PER_SPLIT`` tokens whatever the
+    page size, so that a cache viewed in smaller pages splits as the same
+    tokens in 16-token pages do; at 16 tokens a page that is 8 pages."""
+    assert split_plan(max_pages, bs) == plan
+    assert MIN_TOKENS_PER_SPLIT == 8 * 16
 
 
 def test_split_plan_at_granite_decode():
@@ -255,8 +272,8 @@ def test_decode_pages_at_any_cache_len(monkeypatch, t, bs):
         assert torch.equal(tables, torch.arange(
             b * n_pages, dtype=torch.int32).view(b, n_pages))
         assert torch.equal(lengths, pos + 1)
-    n_split, per = split_plan(n_pages)
-    assert n_split == min(MAX_SPLIT, -(-n_pages // MIN_PAGES_PER_SPLIT))
+    n_split, per = split_plan(n_pages, bs)
+    assert n_split == min(MAX_SPLIT, -(-t // MIN_TOKENS_PER_SPLIT))
     assert (n_split - 1) * per < n_pages <= n_split * per
 
 
