@@ -50,10 +50,25 @@ Phases, each of which fails the run (exit code 1) on error:
    4 heads of 256) served the same way; every agent completes with its
    token budget and the mLSTM kernel is launched 12 times per prefill; a
    profiled decode step and a profiled prefill that splits the mLSTM
-   kernel's time from the sLSTM loop's.
+   kernel's time from the sLSTM loop's;
+7. the serving API: (a) phase 5's full-width model served through
+   ``repro_torch.api.AgentService.engine`` in the four runs of
+   ``API_RUNS`` (open workload, the same on a 2-replica fleet advanced by
+   2 worker threads, closed-loop sessions that swap, tool-use sessions
+   that suspend and spill); each run's finish and JCT per agent, engine
+   counters and every agent's event sequence must equal the JAX engine's
+   record (``tests/torch_api_jax_runs.json``, made on the CPU at reduced
+   width: the engine clock counts iterations, which depend neither on
+   width nor dtype nor token values), paged decode must launch
+   n_layers x decode steps times and flash at all, every token must be in
+   range; (b) ``python -m repro_torch.launch.serve --backend engine`` at
+   both archs, as users start it (on the card), whose ``jct:`` and
+   ``completions:`` lines must equal the JAX launcher's; (c) one prefill
+   and one decode step of reduced granite-3-2b at bfloat16 on the card
+   against the CPU, logged: the logits' max |d| and the argmax agreement.
 
-Each full-width phase zeroes the launch counts just before it serves and
-reads them just after.  The last lines are the card's name and power
+Each full-width phase and each phase-7 run zeroes the launch counts just
+before it serves and reads them just after.  The last lines are the card's name and power
 limit, one ``{"kernels": ...}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -68,8 +83,10 @@ line.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -96,6 +113,34 @@ TENSOR_CORE_KERNELS = ("flash_tc_kernel", "mlstm_chunk_states_kernel",
                        "mlstm_chunk_outputs_kernel")
 #: xlstm-350m's prefill of one prompt at the longest cache
 XLSTM = dict(b=1, nh=4, s=512, hd=256)
+#: the JAX engine's runs that phase 7 is held to, made on the CPU at
+#: reduced width by scripts/record_jax_api_runs.py (tests/test_torch_api.py
+#: regenerates it and requires it unchanged)
+API_RECORD = ROOT / "tests" / "torch_api_jax_runs.json"
+#: the ``AgentService.engine`` arguments every phase-7 run shares
+API_SERVE = dict(time_scale=1.0, seed=0, cache_len=512, token_scale=8,
+                 max_batch=4)
+#: phase 7's runs: the seeded workload, the pool per engine and the
+#: service's own arguments (justitia throughout)
+API_RUNS = {
+    "open": dict(workload="open", seed=0, n_agents=6, pool_tokens=4096),
+    "fleet": dict(workload="open", seed=0, n_agents=6, pool_tokens=4096,
+                  service=dict(replicas=2, router="round_robin",
+                               fleet_workers=2)),
+    "closed": dict(workload="closed", seed=20260731, n_agents=5,
+                   pool_tokens=512),
+    "tooluse": dict(workload="closed", seed=20260731, n_agents=5,
+                    pool_tokens=512, classes=("chat", "react", "tooluse"),
+                    service=dict(suspend_retention="spill")),
+}
+#: arrival window of every phase-7 workload (workload seconds)
+API_WINDOW_S = 20.0
+#: the engine counters a run's record holds, one set per engine
+API_COUNTERS = ("tokens", "prefills", "swaps", "decode_steps",
+                "suspensions", "resumes", "suspend_spills")
+#: the launcher runs of the record: ``--backend engine`` at each arch
+LAUNCHER_ARCHS = ("granite-3-2b", "xlstm-350m")
+LAUNCHER_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -521,6 +566,12 @@ class TokenLog:
         self.tokens.setdefault(aid, []).append(int(tok))
 
 
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def reduced_engine(torch, pkg, arch: str, **over):
     """A reduced config at f32 on the GPU (kernels) and the CPU (plain).
     For the ssm family the sampled tokens must be equal too."""
@@ -530,13 +581,7 @@ def reduced_engine(torch, pkg, arch: str, **over):
     cpu_model = pkg["Model"](cfg, device="cpu")
     cpu_params = cpu_model.init(seed=0)
     gpu_model = pkg["Model"](cfg, device="cuda", debug_checks=True)
-
-    def to_cuda(tree):
-        if isinstance(tree, dict):
-            return {k: to_cuda(v) for k, v in tree.items()}
-        return tree.to("cuda")
-
-    gpu_params = to_cuda(cpu_params)
+    gpu_params = to_device(cpu_params, "cuda")
     for sched in ("justitia", "vtc", "vllm-fcfs"):
         runs = []
         for model, params, dev in ((gpu_model, gpu_params, "cuda"),
@@ -577,14 +622,17 @@ def reduced_engine(torch, pkg, arch: str, **over):
 
 def full_width(torch, pkg, ops, arch: str):
     """Serve ``arch`` at full width from random weights; returns the launch
-    counts of the family's kernels over the serving run."""
+    counts of the family's kernels over the serving run, the model and its
+    parameters."""
     cfg = pkg["get_config"](arch)
     ssm = cfg.kind == "ssm"
     # an earlier phase's engine is freed only by the cycle collector (its
-    # timed methods refer back to it): collect it, so that the peak memory
-    # below is this phase's own
+    # timed methods refer back to it): collect it, and count what is still
+    # allocated (an earlier model kept for phase 7), so that the peak
+    # memory below is this phase's own
     gc.collect()
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = pkg["Model"](cfg, device="cuda")
     params = model.init(seed=0)
@@ -629,7 +677,7 @@ def full_width(torch, pkg, ops, arch: str):
                 "flash_attention": ops.flash_prefill.launches,
                 "mlstm_chunk": ops.mlstm_chunk.launches}
     m = eng.metrics
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - held
     log(f"  agents={len(agents)} completed={len(done)} now={eng.now} "
         f"prefills={m['prefills']} swaps={m['swaps']} "
         f"decode_steps={m['decode_steps']} windows={m['windows']} "
@@ -678,9 +726,10 @@ def full_width(torch, pkg, ops, arch: str):
                    eng._d_state[0][:, None].clone(), eng._d_state[1].clone())
     if ssm:
         profile_prefill(torch, model, params)
-        return {"mlstm_chunk": launches["mlstm_chunk"]}
+        return {"mlstm_chunk": launches["mlstm_chunk"]}, model, params
     profile_granite_prefill(torch, model, params, 8, largest_bucket(agents))
-    return {k: launches[k] for k in ("paged_attention", "flash_attention")}
+    return ({k: launches[k] for k in ("paged_attention", "flash_attention")},
+            model, params)
 
 
 def _device_rows(prof, per: int):
@@ -898,6 +947,196 @@ def profile_granite_prefill(torch, model, params, b: int, s: int) -> dict:
 # --------------------------------------------------------------------- main
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+def api_specs(api, run: dict) -> list:
+    """The run's seeded ``AgentSpec`` list, sampled by ``api``'s workload
+    builders (the port's ``repro_torch.api``; the record's script passes the
+    JAX package's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(run["seed"])
+    if run["workload"] == "open":
+        return api.specs_from_classes(rng, run["n_agents"], API_WINDOW_S)
+    kw = {"classes": run["classes"]} if "classes" in run else {}
+    return api.specs_from_closed_loop(rng, run["n_agents"], API_WINDOW_S,
+                                      **kw)
+
+
+def event_row(ev) -> list:
+    """One event as the record holds it: its type, then every field but the
+    agent id and the token value."""
+    return [type(ev).__name__] + [
+        getattr(ev, f.name) for f in dataclasses.fields(ev)
+        if f.name not in ("agent_id", "token")
+    ]
+
+
+def serve_api(api, model, params, run: dict, **service) -> tuple:
+    """Serve ``run`` through ``api.AgentService.engine`` on ``model``.
+
+    Returns the run's record, as JSON gives it back: finish and JCT per
+    agent, each engine's counters, and every agent's events with the token
+    values left out; and the agents' handles.  ``service`` overrides the
+    run's own service arguments."""
+    svc = api.AgentService.engine(
+        model, params, "justitia", pool_tokens=run["pool_tokens"],
+        **API_SERVE, **{**run.get("service", {}), **service})
+    try:
+        handles = svc.submit_many(api_specs(api, run))
+        res = svc.drain()
+    finally:
+        if hasattr(svc.backend, "close"):
+            svc.backend.close()
+    m = res.metrics
+    engines = [m] if "per_replica" not in m else [
+        {k[len("child_"):]: v for k, v in r.items() if k.startswith("child_")}
+        for r in m["per_replica"]
+    ]
+    record = {
+        "finish": {str(a): t for a, t in sorted(res.finish.items())},
+        "jct": {str(a): t for a, t in sorted(res.jct.items())},
+        "counters": [{k: e[k] for k in API_COUNTERS} for e in engines],
+        "events": {str(h.agent_id): [event_row(ev) for ev in h.events]
+                   for h in handles},
+    }
+    return json.loads(json.dumps(record)), handles
+
+
+def sampled_tokens(handles) -> dict:
+    """Each agent's sampled token ids, in the order they streamed."""
+    return {h.agent_id: [int(ev.token) for ev in h.events
+                         if type(ev).__name__ == "TokenGenerated"]
+            for h in handles}
+
+
+def record_diff(got: dict, want: dict) -> str:
+    """Where two run records first differ ("" where they are equal)."""
+    for key in ("finish", "jct", "counters"):
+        if got[key] != want[key]:
+            return f"{key}: {got[key]} != {want[key]}"
+    for aid in sorted(set(got["events"]) | set(want["events"]), key=int):
+        g, w = got["events"].get(aid, []), want["events"].get(aid, [])
+        for i, (a, b) in enumerate(zip(g, w)):
+            if a != b:
+                return f"agent {aid} event {i}: {a} != {b}"
+        if len(g) != len(w):
+            return f"agent {aid}: {len(g)} events != {len(w)}"
+    return ""
+
+
+def launcher_lines(out: str) -> dict:
+    """The ``jct:`` and ``completions:`` lines of a launcher's output."""
+    return {key: line for line in out.splitlines()
+            for key in ("jct", "completions") if line.startswith(key + ":")}
+
+
+def serve_full_width_api(torch, api, ops, model, params, record: dict,
+                         card: str) -> dict:
+    """Phase 7a: the record's four runs through ``AgentService`` on the
+    full-width model; each must equal the JAX engine's record.  Returns
+    the launches summed over the runs."""
+    vocab = model.cfg.vocab
+    total = {"paged_attention": 0, "flash_attention": 0}
+    for name, run in API_RUNS.items():
+        gc.collect()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, handles = serve_api(api, model, params, run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paged = ops.paged_gqa_decode.launches
+        flash = ops.flash_prefill.launches
+        total["paged_attention"] += paged
+        total["flash_attention"] += flash
+        steps = sum(c["decode_steps"] for c in got["counters"])
+        n_tok = sum(c["tokens"] for c in got["counters"])
+        log(f"  {name:8s} engines={len(got['counters'])} "
+            f"counters={got['counters']}")
+        log(f"  {name:8s} wall {wall:.3f} s, decode iterations/s "
+            f"{steps / wall:.2f}, tokens/s {n_tok / wall:.2f} "
+            f"(whole run, prefills included; {card}); launches: paged "
+            f"{paged} (= {model.cfg.n_layers} x {steps} decode steps: "
+            f"{paged == model.cfg.n_layers * steps}), flash {flash}")
+        diff = record_diff(got, record["runs"][name])
+        if diff:
+            raise AssertionError(f"run {name} differs from the JAX "
+                                 f"engine's record: {diff}")
+        log(f"  {name:8s} finish, JCT, counters and "
+            f"{sum(len(e) for e in got['events'].values())} events equal "
+            "the JAX engine's record")
+        if paged != model.cfg.n_layers * steps:
+            raise AssertionError(f"run {name}: paged decode launched {paged}"
+                                 f" times, not {model.cfg.n_layers * steps}")
+        if flash <= 0:
+            raise AssertionError(f"run {name}: flash prefill never launched")
+        for aid, toks in sampled_tokens(handles).items():
+            if not all(0 <= t < vocab for t in toks):
+                raise AssertionError(f"run {name} agent {aid}: token id out "
+                                     "of range")
+    return total
+
+
+def run_launchers(record: dict) -> None:
+    """Phase 7b: ``python -m repro_torch.launch.serve --backend engine`` as
+    users start it (no ``--device``: the card), for each arch; its
+    ``jct:`` and ``completions:`` lines must equal the JAX launcher's."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    for arch in LAUNCHER_ARCHS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+               "--backend", "engine", "--arch", arch]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=LAUNCHER_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if out.returncode:
+            raise AssertionError(f"launcher --arch {arch} exited "
+                                 f"{out.returncode}:\n{out.stderr[-3000:]}")
+        got = launcher_lines(out.stdout)
+        log(f"  launcher --arch {arch}: exit 0 in {wall:.1f} s; "
+            f"{got.get('completions')}")
+        if got != record["launcher"][arch]:
+            raise AssertionError(f"launcher --arch {arch}: {got} != the JAX "
+                                 f"launcher's {record['launcher'][arch]}")
+
+
+def bf16_logits_report(torch, pkg) -> None:
+    """Phase 7c (logged, not gated): one prefill and one decode step of
+    reduced granite-3-2b at bfloat16 on the card and on the CPU, from the
+    same parameters and tokens: the max |d| of the logits and the share of
+    argmax tokens that agree."""
+    cfg = pkg["get_config"]("granite-3-2b").reduced(dtype="bfloat16")
+    cpu = pkg["Model"](cfg, device="cpu")
+    params = cpu.init(seed=0)
+    gpu = pkg["Model"](cfg, device="cuda")
+    gparams = to_device(params, "cuda")
+    gen = torch.Generator().manual_seed(3)
+    b, s = 4, 128
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                         dtype=torch.int32)
+    pc, cache_c = cpu.prefill(params, {"tokens": toks}, cache_len=2 * s)
+    pg, cache_g = gpu.prefill(gparams, {"tokens": toks.cuda()},
+                              cache_len=2 * s)
+    nxt = pc.float().argmax(-1).to(torch.int32).reshape(b, 1)
+    pos = torch.full((b,), s, dtype=torch.int32)
+    dc, _ = cpu.decode(params, cache_c, nxt, pos)
+    dg, _ = gpu.decode(gparams, cache_g, nxt.cuda(), pos.cuda())
+    for name, c, g in (("prefill", pc, pg), ("decode", dc, dg)):
+        c, g = c.float(), g.float().cpu()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"bf16 {name} logits on the card are not "
+                                 "finite")
+        match = float((c.argmax(-1) == g.argmax(-1)).float().mean())
+        log(f"  bf16 {name} (B {b}, S {s}): max |d| of the logits "
+            f"{float((c - g).abs().max()):.4g} (|logits| up to "
+            f"{float(c.abs().max()):.4g}), argmax tokens equal "
+            f"{match:.4f}")
+
+
+
 def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     """The before side of a comparison made in one chip call: times the
     kernels of another tree's port (an earlier commit unpacked beside this
@@ -970,6 +1209,7 @@ def main(argv: list) -> int:
                EngineAgent=EngineAgent, ServeEngine=ServeEngine, Model=Model)
     if argv:
         return run_baseline(torch, pkg, ops, ref, tree)
+    from repro_torch import api
     from repro_torch.kernels import mlstm_chunk as mlstm
     from repro_torch.kernels.flash_attention import flash_path
     from repro_torch.kernels.flash_attention import smem_bytes as flash_smem
@@ -1049,10 +1289,26 @@ def main(argv: list) -> int:
     reduced_engine(torch, pkg, "xlstm-350m", n_layers=4)
 
     log("== 5. full-width granite-3-2b")
-    launches = full_width(torch, pkg, ops, "granite-3-2b")
+    launches, granite, granite_params = full_width(torch, pkg, ops,
+                                                   "granite-3-2b")
 
     log("== 6. full-width xlstm-350m")
-    launches.update(full_width(torch, pkg, ops, "xlstm-350m"))
+    launches.update(full_width(torch, pkg, ops, "xlstm-350m")[0])
+
+    log("== 7. the serving API on the card")
+    record = json.loads(API_RECORD.read_text())
+    log(f"  (a) full-width {granite.cfg.name} ({granite.cfg.dtype}, phase "
+        "5's parameters) through AgentService.engine, held to the JAX "
+        f"engine's record ({API_RECORD.relative_to(ROOT)})")
+    serve_full_width_api(torch, api, ops, granite, granite_params, record,
+                         card)
+    del granite, granite_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  (b) the launcher, as users start it")
+    run_launchers(record)
+    log("  (c) bf16 logits, card against CPU")
+    bf16_logits_report(torch, pkg)
 
     sources = {
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",

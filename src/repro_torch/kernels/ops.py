@@ -2,25 +2,29 @@
 
 Each wrapper takes its plain PyTorch version (``ref.py``) for tensors on the
 CPU, and only then.  For CUDA tensors it launches its kernel or raises;
-there is no fallback.  Each wrapper counts its launches in a plain integer
+there is no fallback.  Each wrapper counts its launches in an integer
 attribute (``paged_gqa_decode.launches``, ``flash_prefill.launches``,
 ``mlstm_chunk.launches``), so a run can show that its main path went
-through the kernels.
+through the kernels.  The counts are raised under a lock: a replicated
+fleet advances its engines on several threads, and the ctypes calls
+release the interpreter lock, so two engines really launch at once.
 
 The kernels are built at first use: every ``csrc/*.cu`` source is compiled
 by its own ``nvcc`` process (all started together) into a shared library
 with a plain C interface under ``build/torch_kernels/`` at the repository
-root, named by the hash of its sources, and loaded with ``ctypes``.
+root, named by the hash of its sources, and loaded with ``ctypes``.  The
+build and the load run once per process under a lock, whichever thread
+asks first; the others wait for it and share its entry points.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 from repro_torch.kernels import flash_attention as _flash
@@ -59,12 +63,23 @@ def _library_path(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-@functools.cache
+_LIBRARY: dict = {}
+_LIBRARY_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def kernel_library() -> dict:
-    """Build (where not yet built) and load every kernel; returns the C
-    entry points by kernel name.  Compiler output, with the register and
-    shared-memory use ``-Xptxas=-v`` prints, lands beside each library as
-    ``<name>.log``."""
+    """Build (where not yet built) and load every kernel once per process;
+    returns the C entry points by kernel name.  Compiler output, with the
+    register and shared-memory use ``-Xptxas=-v`` prints, lands beside each
+    library as ``<name>.log``."""
+    with _LIBRARY_LOCK:
+        if not _LIBRARY:
+            _LIBRARY.update(_build_and_load())
+        return _LIBRARY
+
+
+def _build_and_load() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {name: _library_path(mod.SOURCE)
                for name, mod in _KERNELS.items()}
@@ -118,7 +133,7 @@ def paged_gqa_decode(
             kernel_library()["paged_attention"], qg, k_pages, v_pages,
             block_tables, lengths, block_size=block_size, scale=hd ** -0.5,
         )
-        paged_gqa_decode.launches += 1
+        _count(paged_gqa_decode)
     return out.reshape(b, nh, hd)
 
 
@@ -151,7 +166,7 @@ def flash_prefill(
             kernel_library()["flash_attention"], qt, kt, vt, window=window,
             scale=hd ** -0.5,
         )
-        flash_prefill.launches += 1
+        _count(flash_prefill)
     return out.transpose(1, 2)
 
 
@@ -188,14 +203,20 @@ def mlstm_chunk(
         kernel_library()["mlstm_chunk"], q, k, v, i_raw.float(),
         log_f.float(), state, chunk=chunk,
     )
-    mlstm_chunk.launches += 1
+    _count(mlstm_chunk)
     return out
 
 
 mlstm_chunk.launches = 0
 
 
+def _count(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def reset_launch_counts() -> None:
-    paged_gqa_decode.launches = 0
-    flash_prefill.launches = 0
-    mlstm_chunk.launches = 0
+    with _COUNT_LOCK:
+        paged_gqa_decode.launches = 0
+        flash_prefill.launches = 0
+        mlstm_chunk.launches = 0

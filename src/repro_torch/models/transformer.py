@@ -395,14 +395,18 @@ class Model:
             stack, n = params["xlstm_pairs"], cfg.n_layers // cfg.slstm_every
         else:
             stack, n = params["blocks"], cfg.n_layers
-        if self._views[0] is not stack:
+        # read once: a replicated fleet serves one model from several
+        # threads, and the pair is replaced whole, never mutated
+        views = self._views
+        if views[0] is not stack:
             def index(tree, l):
                 if isinstance(tree, dict):
                     return {k: index(v, l) for k, v in tree.items()}
                 return tree[l]
 
-            self._views = (stack, [index(stack, l) for l in range(n)])
-        return self._views[1]
+            views = (stack, [index(stack, l) for l in range(n)])
+            self._views = views
+        return views[1]
 
     # ------------------------------------------------------------ embed
 

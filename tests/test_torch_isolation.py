@@ -18,9 +18,17 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
 
 MODULES = [
     "repro_torch",
+    "repro_torch.api",
+    "repro_torch.api.backend",
+    "repro_torch.api.events",
+    "repro_torch.api.faults",
+    "repro_torch.api.replicated",
+    "repro_torch.api.service",
+    "repro_torch.api.workload",
     "repro_torch.configs",
     "repro_torch.configs.xlstm_350m",
     "repro_torch.core",
+    "repro_torch.core.gps",
     "repro_torch.engine",
     "repro_torch.kernels",
     "repro_torch.kernels.flash_attention",
@@ -29,11 +37,19 @@ MODULES = [
     "repro_torch.kernels.paged_attention",
     "repro_torch.kernels.ref",
     "repro_torch.kvcache",
+    "repro_torch.launch",
+    "repro_torch.launch.serve",
     "repro_torch.models",
     "repro_torch.models.layers",
     "repro_torch.models.params",
     "repro_torch.models.ssm",
     "repro_torch.models.transformer",
+    "repro_torch.sim",
+    "repro_torch.sim.cluster",
+    "repro_torch.sim.metrics",
+    "repro_torch.workloads",
+    "repro_torch.workloads.agents",
+    "repro_torch.workloads.arrivals",
 ]
 
 
