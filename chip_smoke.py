@@ -38,7 +38,12 @@ Phases, each of which fails the run (exit code 1) on error:
    served on the GPU (the kernels) and on the CPU (the plain versions)
    under three schedulers with a pool small enough to force swaps;
    completions, clock and counters must be equal, and for xlstm the
-   sampled tokens too;
+   sampled tokens too; then reduced granite with ``prefix_cache`` and
+   ``fused_prefill`` on for agents that share prompt heads, a pool of 192
+   and a cache of 96 tokens, in 16-token slices under justitia and in
+   80-token slices under vtc (each slice after a hit runs past the cache
+   end): completions, clock, counters and every sampled token equal, the
+   cache hitting, slices running and the pool swapping;
 5. full width, granite-3-2b at bfloat16 (40 layers, d_model 2048, random
    weights from a seed) served by ``ServeEngine`` (max_batch 8, cache_len
    512, pool 4096 tokens, justitia) for seeded agents; every agent
@@ -52,17 +57,22 @@ Phases, each of which fails the run (exit code 1) on error:
    profiled decode step and a profiled prefill that splits the mLSTM
    kernel's time from the sLSTM loop's;
 7. the serving API: (a) phase 5's full-width model served through
-   ``repro_torch.api.AgentService.engine`` in the four runs of
+   ``repro_torch.api.AgentService.engine`` in the seven runs of
    ``API_RUNS`` (open workload, the same on a 2-replica fleet advanced by
    2 worker threads, closed-loop sessions that swap, tool-use sessions
-   that suspend and spill); each run's finish and JCT per agent, engine
-   counters and every agent's event sequence must equal the JAX engine's
-   record (``tests/torch_api_jax_runs.json``, made on the CPU at reduced
-   width: the engine clock counts iterations, which depend neither on
-   width nor dtype nor token values), paged decode must launch
-   n_layers x decode steps times and flash at all, every token must be in
-   range; (b) ``python -m repro_torch.launch.serve --backend engine`` at
-   both archs, as users start it (on the card), whose ``jct:`` and
+   that suspend and spill, the closed-loop sessions with the prefix
+   cache, the open workload with fused prefill, the tool-use sessions
+   with both); each run's finish and JCT per agent, engine counters and
+   every agent's event sequence must equal the JAX engine's record
+   (``tests/torch_api_jax_runs.json``, made on the CPU at reduced width:
+   the engine clock counts iterations, which depend neither on width nor
+   dtype nor token values), paged decode must launch n_layers x decode
+   steps times (a fused step is one) and flash n_layers x batched prefill
+   passes times, a run with the prefix cache must hit and one with fused
+   prefill must run slices, every token must be in range; then one fused
+   step at the serving shape is timed and profiled beside a decode step
+   and its slice alone; (b) ``python -m repro_torch.launch.serve
+   --backend engine`` at both archs, as users start it (on the card), whose ``jct:`` and
    ``completions:`` lines must equal the JAX launcher's; (c) one prefill
    and one decode step of reduced granite-3-2b at bfloat16 on the card
    against the CPU, logged: the logits' max |d| and the argmax agreement.
@@ -132,12 +142,23 @@ API_RUNS = {
     "tooluse": dict(workload="closed", seed=20260731, n_agents=5,
                     pool_tokens=512, classes=("chat", "react", "tooluse"),
                     service=dict(suspend_retention="spill")),
+    "prefix": dict(workload="closed", seed=20260731, n_agents=5,
+                   pool_tokens=512, service=dict(prefix_cache=True)),
+    "fused": dict(workload="open", seed=0, n_agents=6, pool_tokens=4096,
+                  service=dict(fused_prefill=True)),
+    "fused_prefix": dict(workload="closed", seed=20260731, n_agents=5,
+                         pool_tokens=512,
+                         classes=("chat", "react", "tooluse"),
+                         service=dict(suspend_retention="spill",
+                                      prefix_cache=True,
+                                      fused_prefill=True)),
 }
 #: arrival window of every phase-7 workload (workload seconds)
 API_WINDOW_S = 20.0
 #: the engine counters a run's record holds, one set per engine
 API_COUNTERS = ("tokens", "prefills", "swaps", "decode_steps",
-                "suspensions", "resumes", "suspend_spills")
+                "suspensions", "resumes", "suspend_spills", "prefix_hits",
+                "prefill_tokens_saved", "fused_slices")
 #: the launcher runs of the record: ``--backend engine`` at each arch
 LAUNCHER_ARCHS = ("granite-3-2b", "xlstm-350m")
 LAUNCHER_TIMEOUT_S = 300
@@ -550,6 +571,47 @@ def seeded_agents(agent_cls, inference_spec, agent_cost, seed, n, p_range,
     return agents, budgets
 
 
+def shared_prefix_agents(agent_cls, inference_spec, agent_cost, seed, n,
+                         vocab, closed_loop=False):
+    """Seeded agents whose prompts share block-aligned heads, so that a
+    prefix cache hits: each prompt is one of two 32-token family heads plus
+    4-15 tokens of its own, every third agent opens with one 48-token
+    prompt that the others repeat whole (a full hit), and a second stage
+    extends the agent's first prompt by 4-8 tokens (a multi-turn session);
+    12-31 new tokens each.  Prompt plus budget stay below 96 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(0, vocab, size=32) for _ in range(2)]
+    repeat = np.concatenate([heads[0], rng.integers(0, vocab, size=16)])
+    agents = []
+    for i in range(n):
+        stages, specs, first = [], [], None
+        for _ in range(1 + int(rng.integers(0, 2))):
+            stage = []
+            for j in range(1 + int(rng.integers(0, 2))):
+                if first is None and i % 3 == 2:
+                    prompt = repeat
+                elif first is None or j:
+                    prompt = np.concatenate([
+                        heads[i % 2],
+                        rng.integers(0, vocab, size=int(rng.integers(4, 16))),
+                    ])
+                else:
+                    prompt = np.concatenate([
+                        first,
+                        rng.integers(0, vocab, size=int(rng.integers(4, 9))),
+                    ])
+                first = prompt if first is None else first
+                d = int(rng.integers(12, 32))
+                stage.append((prompt, d))
+                specs.append(inference_spec(len(prompt), d))
+            stages.append(stage)
+        agents.append(agent_cls(i, int(rng.integers(0, 3 * n)), stages,
+                                agent_cost(specs), closed_loop=closed_loop))
+    return agents
+
+
 def serving_agents(pkg, vocab: int):
     """The 8 seeded agents the full-width phases serve (prompts of 64-400
     tokens, 16-64 new tokens each)."""
@@ -572,9 +634,15 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def reduced_engine(torch, pkg, arch: str, **over):
+def reduced_engine(torch, pkg, arch: str, flags: bool = False, **over):
     """A reduced config at f32 on the GPU (kernels) and the CPU (plain).
-    For the ssm family the sampled tokens must be equal too."""
+    For the ssm family the sampled tokens must be equal too.  ``flags``
+    serves with ``prefix_cache`` and ``fused_prefill`` on (a pool of 192
+    tokens, a cache of 96) agents that share prompt heads, in 16-token
+    slices under justitia and in 80-token slices under vtc (a slice that
+    starts after a prefix hit runs past the cache end, whose rows must be
+    dropped): the sampled tokens must be equal, the cache must hit, the
+    fused slices must run and the pool must swap."""
     import numpy as np
 
     cfg = pkg["get_config"](arch).reduced(**over)
@@ -582,41 +650,58 @@ def reduced_engine(torch, pkg, arch: str, **over):
     cpu_params = cpu_model.init(seed=0)
     gpu_model = pkg["Model"](cfg, device="cuda", debug_checks=True)
     gpu_params = to_device(cpu_params, "cuda")
-    for sched in ("justitia", "vtc", "vllm-fcfs"):
+    keys = ("tokens", "prefills", "swaps", "decode_steps")
+    cases = [(sched, dict(cache_len=128))
+             for sched in ("justitia", "vtc", "vllm-fcfs")]
+    pool = 256
+    if flags:
+        keys += ("prefix_hits", "prefill_tokens_saved", "fused_slices")
+        cases = [(sched, dict(prefix_cache=True, fused_prefill=True,
+                              cache_len=96, prefill_chunk=chunk))
+                 for sched, chunk in (("justitia", 16), ("vtc", 80))]
+        pool = 192
+    for sched, engine_kw in cases:
         runs = []
         for model, params, dev in ((gpu_model, gpu_params, "cuda"),
                                    (cpu_model, cpu_params, "cpu")):
             toks = TokenLog()
             eng = pkg["ServeEngine"](
-                model, params, pkg["make_scheduler"](sched, 256.0),
-                pool_tokens=256, max_batch=4, cache_len=128, listener=toks,
-                device=dev,
+                model, params, pkg["make_scheduler"](sched, float(pool)),
+                pool_tokens=pool, max_batch=4, listener=toks, device=dev,
+                **engine_kw,
             )
-            agents, _ = seeded_agents(pkg["EngineAgent"],
-                                      pkg["InferenceSpec"],
-                                      pkg["agent_cost"], 5, 8, (16, 64),
-                                      (24, 60), cfg.vocab)
+            if flags:
+                agents = shared_prefix_agents(
+                    pkg["EngineAgent"], pkg["InferenceSpec"],
+                    pkg["agent_cost"], 5, 8, cfg.vocab)
+            else:
+                agents, _ = seeded_agents(pkg["EngineAgent"],
+                                          pkg["InferenceSpec"],
+                                          pkg["agent_cost"], 5, 8, (16, 64),
+                                          (24, 60), cfg.vocab)
             for a in agents:
                 eng.submit_agent(a)
             eng.run_until_idle()
             eng.alloc.check_invariants()
             runs.append(({"completions": dict(eng.completions),
                           "now": eng.now,
-                          **{k: eng.metrics[k] for k in
-                             ("tokens", "prefills", "swaps",
-                              "decode_steps")}}, toks.tokens))
+                          **{k: eng.metrics[k] for k in keys}}, toks.tokens))
         (g, gt), (c, ct) = runs
         flat_g = np.concatenate([gt[a] for a in sorted(gt)])
         flat_c = np.concatenate([ct[a] for a in sorted(ct)])
         match = float(np.mean(flat_g == flat_c)) if len(flat_g) == len(
             flat_c) else 0.0
-        log(f"  {arch} {sched:9s} gpu={g} cpu_equal={g == c} "
+        log(f"  {arch} {sched:9s} "
+            f"{engine_kw if flags else ''} gpu={g} cpu_equal={g == c} "
             f"token_match={match:.4f}")
         if g != c:
             raise AssertionError(f"GPU and CPU engines differ: {g} vs {c}")
+        if flags and (g["prefix_hits"] == 0 or g["fused_slices"] == 0):
+            raise AssertionError("the prefix cache did not hit or no fused "
+                                 "slice ran")
         if g["swaps"] == 0:
-            raise AssertionError("pool 256 did not force a swap")
-        if cfg.kind == "ssm" and match != 1.0:
+            raise AssertionError(f"pool {pool} did not force a swap")
+        if (cfg.kind == "ssm" or flags) and match != 1.0:
             raise AssertionError(f"sampled tokens differ: match {match}")
 
 
@@ -1034,49 +1119,154 @@ def launcher_lines(out: str) -> dict:
 
 def serve_full_width_api(torch, api, ops, model, params, record: dict,
                          card: str) -> dict:
-    """Phase 7a: the record's four runs through ``AgentService`` on the
-    full-width model; each must equal the JAX engine's record.  Returns
-    the launches summed over the runs."""
+    """Phase 7a: the record's runs through ``AgentService`` on the
+    full-width model; each must equal the JAX engine's record.  Paged
+    decode must launch n_layers times a decode step (fused steps
+    included) and flash n_layers times a batched prefill pass (each pass
+    is one-shot here: every bucket fits ``prefill_chunk``, 512); a run
+    with the prefix cache on must hit, one with fused prefill must run
+    slices.  Returns the launches summed over the runs."""
+    from repro_torch.engine import engine as engine_mod
+
     vocab = model.cfg.vocab
+    n_layers = model.cfg.n_layers
     total = {"paged_attention": 0, "flash_attention": 0}
-    for name, run in API_RUNS.items():
-        gc.collect()
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        got, handles = serve_api(api, model, params, run)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        paged = ops.paged_gqa_decode.launches
-        flash = ops.flash_prefill.launches
-        total["paged_attention"] += paged
-        total["flash_attention"] += flash
-        steps = sum(c["decode_steps"] for c in got["counters"])
-        n_tok = sum(c["tokens"] for c in got["counters"])
-        log(f"  {name:8s} engines={len(got['counters'])} "
-            f"counters={got['counters']}")
-        log(f"  {name:8s} wall {wall:.3f} s, decode iterations/s "
-            f"{steps / wall:.2f}, tokens/s {n_tok / wall:.2f} "
-            f"(whole run, prefills included; {card}); launches: paged "
-            f"{paged} (= {model.cfg.n_layers} x {steps} decode steps: "
-            f"{paged == model.cfg.n_layers * steps}), flash {flash}")
-        diff = record_diff(got, record["runs"][name])
-        if diff:
-            raise AssertionError(f"run {name} differs from the JAX "
-                                 f"engine's record: {diff}")
-        log(f"  {name:8s} finish, JCT, counters and "
-            f"{sum(len(e) for e in got['events'].values())} events equal "
-            "the JAX engine's record")
-        if paged != model.cfg.n_layers * steps:
-            raise AssertionError(f"run {name}: paged decode launched {paged}"
-                                 f" times, not {model.cfg.n_layers * steps}")
-        if flash <= 0:
-            raise AssertionError(f"run {name}: flash prefill never launched")
-        for aid, toks in sampled_tokens(handles).items():
-            if not all(0 <= t < vocab for t in toks):
-                raise AssertionError(f"run {name} agent {aid}: token id out "
-                                     "of range")
+    passes = []          # one entry per batched prefill pass, any thread
+    write = engine_mod._prefill_write
+
+    def counted_write(*args, **kw):
+        passes.append(1)
+        return write(*args, **kw)
+
+    engine_mod._prefill_write = counted_write
+    try:
+        for name, run in API_RUNS.items():
+            gc.collect()
+            torch.cuda.synchronize()
+            passes.clear()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got, handles = serve_api(api, model, params, run)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            paged = ops.paged_gqa_decode.launches
+            flash = ops.flash_prefill.launches
+            total["paged_attention"] += paged
+            total["flash_attention"] += flash
+            _check_api_run(name, run, got, handles, record, wall, paged,
+                           flash, n_layers * len(passes), n_layers, vocab,
+                           card)
+    finally:
+        engine_mod._prefill_write = write
     return total
+
+
+def _check_api_run(name, run, got, handles, record, wall, paged, flash,
+                   want_flash, n_layers, vocab, card) -> None:
+    """Log one phase-7 run and hold it to the record, its launch counts
+    and the features it turns on."""
+    steps = sum(c["decode_steps"] for c in got["counters"])
+    n_tok = sum(c["tokens"] for c in got["counters"])
+    log(f"  {name:12s} engines={len(got['counters'])} "
+        f"counters={got['counters']}")
+    log(f"  {name:12s} wall {wall:.3f} s, decode iterations/s "
+        f"{steps / wall:.2f}, tokens/s {n_tok / wall:.2f} "
+        f"(whole run, prefills included; {card}); launches: paged "
+        f"{paged} (= {n_layers} x {steps} decode steps: "
+        f"{paged == n_layers * steps}), flash {flash} (= {n_layers} x "
+        f"{want_flash // n_layers} prefill passes: {flash == want_flash})")
+    diff = record_diff(got, record["runs"][name])
+    if diff:
+        raise AssertionError(f"run {name} differs from the JAX "
+                             f"engine's record: {diff}")
+    log(f"  {name:12s} finish, JCT, counters and "
+        f"{sum(len(e) for e in got['events'].values())} events equal "
+        "the JAX engine's record")
+    if paged != n_layers * steps:
+        raise AssertionError(f"run {name}: paged decode launched {paged}"
+                             f" times, not {n_layers * steps}")
+    if flash != want_flash:
+        raise AssertionError(f"run {name}: flash prefill launched {flash} "
+                             f"times, not {want_flash}")
+    service = run.get("service", {})
+    for flag, counter in (("prefix_cache", "prefix_hits"),
+                          ("fused_prefill", "fused_slices")):
+        if service.get(flag) and not sum(c[counter] for c in
+                                         got["counters"]):
+            raise AssertionError(f"run {name}: {flag} on but {counter} 0")
+    for aid, toks in sampled_tokens(handles).items():
+        if not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"run {name} agent {aid}: token id out of "
+                                 "range")
+
+
+def profile_fused_step(torch, model, params, card: str) -> None:
+    """Where a full-width fused step's time goes, at phase 7's serving
+    shape (4 slots of 512 rows, ``prefill_chunk`` 512): three slots decode
+    at position 256 while the fourth prefills a zero-padded 512-token slice
+    of a 400-token prompt.  The host wall of a decode step, a fused step
+    and the slice alone (median of 5 after a synchronize), then, from
+    ``torch.profiler``, the device time of the fused step and of the
+    slice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine.engine import _decode_window, _fused_window
+
+    b, t, total, at = API_SERVE["max_batch"], API_SERVE["cache_len"], 400, 256
+    chunk = t
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    vocab = model.cfg.vocab
+    toks = torch.randint(0, vocab, (b, at), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    _, cache = model.prefill(params, {"tokens": toks}, cache_len=t)
+    slot = b - 1
+    cache["kv_pos"][:, slot] = -1
+    slices = torch.randint(0, vocab, (1, chunk), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    slices[0, total:] = 0
+    state0 = torch.tensor([[1] * b, [at] * (b - 1) + [0],
+                           [8] * (b - 1) + [0]], dtype=torch.int32,
+                          device="cuda")
+    fns = {
+        "decode step": lambda: _decode_window(model, 1, params, cache,
+                                              state0.clone()),
+        "fused step": lambda: _fused_window(model, 1, chunk, params, cache,
+                                            state0.clone(), slices, slot, 0,
+                                            total),
+        "slice alone": lambda: model.prefill_slice(params, cache, slices[0],
+                                                   slot, 0, total),
+    }
+    wall = {}
+    for name, fn in fns.items():
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        wall[name] = statistics.median(times)
+    share = wall["slice alone"] / wall["fused step"]
+    log(f"  fused step (B {b}, T {t}, slice {chunk} of a {total}-token "
+        f"prompt; {card}): wall decode step {wall['decode step']:.2f} ms, "
+        f"fused step {wall['fused step']:.2f} ms, slice alone "
+        f"{wall['slice alone']:.2f} ms ({share:.3f} of the fused step)")
+    busy = {}
+    for name in ("fused step", "slice alone"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fns[name]()
+            torch.cuda.synchronize()
+        rows = _device_rows(prof, 1)
+        busy[name] = sum(r[0] for r in rows)
+        log(f"  profile: {name}: device busy {busy[name]:.0f} us in "
+            f"{sum(r[1] for r in rows)} kernels")
+        for dev, count, key in sorted(rows, reverse=True)[:5]:
+            log(f"    {dev:9.1f} us {count:6d} calls  {key[:70]}")
+    if busy["fused step"]:
+        log(f"  the slice's share of the fused step's device time "
+            f"{busy['slice alone'] / busy['fused step']:.3f}")
 
 
 def run_launchers(record: dict) -> None:
@@ -1286,6 +1476,7 @@ def main(argv: list) -> int:
 
     log("== 4. reduced engines, GPU (kernels) against CPU (plain)")
     reduced_engine(torch, pkg, "granite-3-2b")
+    reduced_engine(torch, pkg, "granite-3-2b", flags=True)
     reduced_engine(torch, pkg, "xlstm-350m", n_layers=4)
 
     log("== 5. full-width granite-3-2b")
@@ -1302,6 +1493,7 @@ def main(argv: list) -> int:
         f"engine's record ({API_RECORD.relative_to(ROOT)})")
     serve_full_width_api(torch, api, ops, granite, granite_params, record,
                          card)
+    profile_fused_step(torch, granite, granite_params, card)
     del granite, granite_params
     gc.collect()
     torch.cuda.empty_cache()

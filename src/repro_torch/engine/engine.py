@@ -45,10 +45,18 @@ programs become PyTorch functions that update the cache in place:
 * **Slot-wise swaps + staging pool.**  Swap-out copies ONE slot's rows
   (K/V rows, or the recurrent state of every ssm layer) into a host staging
   buffer drawn from a free pool; swap-in copies them back.
+* **Fused prefill-in-window** (``fused_prefill=True``, dense family).  Each
+  window step also runs one ``prefill_chunk`` slice of the single admitted
+  prompt through ``Model.prefill_slice`` (plain ``attention_any``, as in
+  JAX), and the window still ends in ONE device->host copy of a (K, B+1)
+  token matrix.  The prefilling slot rides the decode batch frozen with
+  its ``pos`` chasing the slice start, so its decode garbage lands on the
+  rows the same step's slice overwrites (see ``_fused_window``).
 
-``prefix_cache=True`` and ``fused_prefill=True`` are not ported yet: they
-raise ``NotImplementedError`` (they come with ``Model.prefill_slice`` and
-the flash kernel variant with a query offset).
+``prefix_cache=True`` needs no device program of its own: the unfused
+admission prefills the whole prompt as before and charges only the
+uncached suffix; fused admission writes a hit's head through
+``_prefill_write`` and streams the rest as slices.
 """
 
 from __future__ import annotations
@@ -76,26 +84,76 @@ from repro_torch.models import Model
 # --------------------------------------------------------------------------
 
 
+def _decode_step(model, params, cache, state):
+    """One decode iteration: model.decode + greedy argmax + masked slot
+    advance.  ``state`` is the stacked (3, B) int32 slot tensor
+    [last_tok; pos; remaining]; a slot with no remaining budget freezes
+    (it keeps rewriting row ``pos``).  Returns the sampled tokens and the
+    new state."""
+    last_tok, pos, rem = state
+    logits, cache = model.decode(params, cache, last_tok[:, None], pos)
+    nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+    live = rem > 0
+    return nxt, torch.stack([
+        torch.where(live, nxt, last_tok),
+        torch.where(live, pos + 1, pos),
+        rem - live.to(rem.dtype),
+    ])
+
+
 def _decode_window(model, k: int, params, cache, state):
-    """K decode iterations: model.decode + greedy argmax + masked slot
-    advance, looped on the device.  ``state`` is the stacked (3, B) int32
-    slot tensor [last_tok; pos; remaining].  A slot whose remaining budget
-    runs out mid-window freezes in place (it keeps rewriting row ``pos``),
-    so a window may span final completions.  Returns the new state and the
-    K x B sampled tokens, still on the device."""
+    """K decode iterations looped on the device.  A slot whose remaining
+    budget runs out mid-window freezes in place, so a window may span
+    final completions.  Returns the new state and the K x B sampled
+    tokens, still on the device."""
     toks = []
     for _ in range(k):
-        last_tok, pos, rem = state
-        logits, cache = model.decode(params, cache, last_tok[:, None], pos)
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
-        live = rem > 0
-        state = torch.stack([
-            torch.where(live, nxt, last_tok),
-            torch.where(live, pos + 1, pos),
-            rem - live.to(rem.dtype),
-        ])
+        nxt, state = _decode_step(model, params, cache, state)
         toks.append(nxt)
     return state, torch.stack(toks)
+
+
+def _fused_window(model, k: int, chunk: int, params, cache, state,
+                  pf_tokens, slot: int, start0: int, total: int):
+    """K fused decode+prefill iterations: each step advances all B decode
+    slots one token (``_decode_step``) AND runs one bounded lens-masked
+    prefill slice of the single prefilling slot through
+    ``Model.prefill_slice``.
+
+    ``pf_tokens``: (K, chunk) int32 prompt slices (zero-padded) on the
+    device; ``slot``, ``start0`` and ``total`` (host ints): the prefilling
+    cache row, the first slice's absolute write offset and the full prompt
+    length.  The prefilling slot rides the decode batch frozen (its ``rem``
+    row is 0) but its ``pos`` row is overridden to chase the next slice
+    start: step i's frozen-slot decode garbage lands at ``start0 +
+    i*chunk`` — exactly the rows the same step's slice overwrites — and the
+    carried-out ``pos`` equals the next window's ``start0``.  No host sync
+    inside the loop.
+
+    Returns the new state and the (K, B+1) token matrix, still on the
+    device: columns 0..B-1 are the decode samples, column B is the prefill
+    slot's argmax at the prompt's final position — valid only at the step
+    whose slice exhausts the prompt (the request's first token)."""
+    is_pf = torch.arange(state.shape[1], device=state.device) == slot
+    toks = []
+    for i in range(k):
+        nxt, state = _decode_step(model, params, cache, state)
+        state[1] = torch.where(is_pf, start0 + (i + 1) * chunk, state[1])
+        pf_logits, cache = model.prefill_slice(
+            params, cache, pf_tokens[i], slot, start0 + i * chunk, total
+        )
+        pf_tok = torch.argmax(pf_logits, dim=-1).to(torch.int32)
+        toks.append(torch.cat([nxt, pf_tok[None]]))
+    return state, torch.stack(toks)
+
+
+def _clear_slot_kvpos(cache, slot: int) -> None:
+    """Invalidate one slot's attention rows (``kv_pos = -1``) ahead of a
+    fused prefill: the slices only write the prompt's own positions, so a
+    reused slot's stale-but-valid rows from its previous occupant must be
+    masked out first (``_prefill_write`` instead overwrites the whole slot,
+    lens-masked)."""
+    cache["kv_pos"][:, slot] = -1
 
 
 def _prefill_write(model, cache_len: int, chunk: int, params, cache,
@@ -187,6 +245,24 @@ class EngineRequest:
 
 
 @dataclasses.dataclass
+class _FusedPrefill:
+    """The single in-flight fused prefill (``fused_prefill=True`` only).
+
+    The request holds a slot and its blocks (all allocated at admission)
+    but is NOT in ``slot_req`` or the running queue until its last slice
+    lands — it cannot decode, be a swap victim, or complete while
+    prefilling.  ``written`` counts K/V rows already resident (starts at
+    the prefix-cache hit); the remaining slices cover
+    ``[written, total)``.
+    """
+
+    req: EngineRequest
+    slot: int
+    total: int          # len(prompt)
+    written: int        # rows already written (prefix hit + done slices)
+
+
+@dataclasses.dataclass
 class EngineAgent:
     agent_id: int
     arrival_iter: int
@@ -251,12 +327,6 @@ class ServeEngine:
             raise ValueError(
                 f"model lives on {model.device}, engine on {self.device}"
             )
-        if prefix_cache or fused_prefill:
-            raise NotImplementedError(
-                "prefix_cache and fused_prefill are not ported yet: they "
-                "arrive with Model.prefill_slice and the flash kernel "
-                "variant with a query offset"
-            )
         self.model = model
         self.params = params
         self.sched = scheduler
@@ -264,16 +334,38 @@ class ServeEngine:
         #: prefix-aware KV reuse (PR 6): admission looks up each prompt's
         #: cached full-block prefix, charges only the uncached suffix to
         #: prefill clock cost + scheduler service, and keeps released
-        #: prompt blocks matchable until evicted.  The host bookkeeping is
-        #: kept as the JAX engine has it; the flag is refused above until
-        #: its device path is ported.
+        #: prompt blocks matchable until evicted.  Off (the default) the
+        #: engine builds the plain allocator and is bit-identical to the
+        #: pre-cache behaviour.
         self.prefix_cache = bool(prefix_cache)
+        #: fused prefill-in-window: admission claims a slot and its
+        #: blocks at ZERO clock cost, then the prompt's uncached suffix is
+        #: prefilled one bounded ``prefill_chunk`` slice per iteration
+        #: INSIDE the decode windows (``_fused_window``), so running
+        #: decoders keep producing tokens while a prompt streams in instead
+        #: of stalling ``ceil(suffix/chunk)-1`` iterations at every
+        #: admission.  One fused prefill is in flight at a time; windows
+        #: end exactly at slice exhaustion (the ``_window_size`` trigger —
+        #: that is the first instant admission can become possible again).
+        #: Off (the default) no fused code path runs.
+        self.fused_prefill = bool(fused_prefill)
+        if self.fused_prefill:
+            ring = bool(model.cfg.sliding_window) and min(
+                cache_len, model.cfg.sliding_window
+            ) < cache_len
+            if model.cfg.kind not in ("dense", "moe", "vlm") or ring:
+                raise ValueError(
+                    "fused_prefill=True needs a full-cache attention "
+                    f"family (dense/moe/vlm, no ring buffer); got "
+                    f"kind={model.cfg.kind!r} ring={ring}"
+                )
+        self._pf: Optional[_FusedPrefill] = None
         alloc_cls = PrefixAwareAllocator if prefix_cache else BlockAllocator
         self.alloc = alloc_cls(pool_tokens, block_size)
         #: watermark admission control (PR 8): ``(low_frac, high_frac)``
-        #: of the block pool.  While anything occupies a slot, a NEW
-        #: admission that would lift block usage above the high watermark
-        #: is deferred, and once gated the
+        #: of the block pool.  While anything occupies a slot (or a fused
+        #: prefill is in flight), a NEW admission that would lift block
+        #: usage above the high watermark is deferred, and once gated the
         #: gate stays shut until usage drains to the low watermark
         #: (hysteresis) — the pool never enters the recurring swap-thrash
         #: regime just to squeeze one more prompt in.  Swapped
@@ -623,7 +715,10 @@ class ServeEngine:
         """Work is queued or running.  Pending future arrivals and
         scheduled resumes are excluded: both are future clock targets the
         run drivers jump to in O(1), not work the engine can advance."""
-        return bool(self.waiting or self.swapped or self.slot_req)
+        return bool(
+            self.waiting or self.swapped or self.slot_req
+            or self._pf is not None
+        )
 
     def _next_wake(self, default: int) -> int:
         """Earliest scheduled clock target: pending arrival or
@@ -704,6 +799,7 @@ class ServeEngine:
             f"swapped={len(self.swapped)} running={len(self.slot_req)} "
             f"pending_arrivals={len(self.pending)} "
             f"suspended={len(self._resumes)} held_rids={len(self._held)} "
+            f"fused_prefill_in_flight={self._pf is not None} "
             f"free_slots={len(self.slot_free)}/{self.max_batch} "
             f"free_blocks={self.alloc.free_blocks}/{self.alloc.n_blocks} "
             f"completed_agents={len(self.completions)}/{len(self.agents)} "
@@ -747,6 +843,10 @@ class ServeEngine:
             self._sync_queue_metrics()
             return
         self.waiting.refresh(version)
+        if self.fused_prefill:
+            self._admit_fused()
+            self._sync_queue_metrics()
+            return
         batch: list[EngineRequest] = []
         while self.waiting and len(self.slot_free) > len(batch):
             req = self.waiting.peek()
@@ -771,6 +871,106 @@ class ServeEngine:
         if batch:
             self._prefill_batch(batch)
         self._sync_queue_metrics()
+
+    def _admit_fused(self) -> None:
+        """Fused-mode admission: claim ONE waiting request at zero clock.
+
+        The slot and every prompt block are allocated now, the scheduler
+        service deal and ``on_admit`` are stamped now (at an unmoved
+        ``now``), but the uncached suffix's K/V is produced one slice per
+        iteration inside the following fused decode windows — running
+        decoders never stall.  A prefix-cache hit's head is written
+        immediately by the batched prefill program (its KV is presumed
+        resident — the same zero-iteration assumption the unfused path
+        makes); a fully-cached prompt therefore becomes a decoder with no
+        fused slices at all, preserving the shortened-TTFT semantics.
+        """
+        if self._pf is not None or not self.slot_free or not self.waiting:
+            return
+        req = self.waiting.peek()
+        if self._wm is not None and self._wm_gate(req):
+            return
+        if self.prefix_cache:
+            while not self.alloc.can_admit_prefix(req.prompt):
+                if not self._escalate_held():
+                    return
+            self.waiting.popleft()
+            _, hit = self.alloc.admit_prefix(req.rid, req.prompt)
+            req.cached_tokens = int(hit)
+        else:
+            while not self.alloc.can_admit(len(req.prompt) + 1):
+                if not self._escalate_held():
+                    return
+            self.waiting.popleft()
+            self.alloc.admit(req.rid, len(req.prompt))
+        p = len(req.prompt)
+        hit = req.cached_tokens
+        slot = self.slot_free.pop()
+        req.slot = slot
+        self.metrics["prefills"] += 1
+        self.sched.on_service(
+            req.agent_id, prefill_tokens=float(p - hit)
+        )
+        if self._grouped:
+            self._dirty_agents.add(req.agent_id)
+        self._emit("on_admit", req.agent_id, req.rid, float(self.now))
+        self.agent_prefill_tokens[req.agent_id] = (
+            self.agent_prefill_tokens.get(req.agent_id, 0) + p
+        )
+        if hit:
+            self.agent_hit_tokens[req.agent_id] = (
+                self.agent_hit_tokens.get(req.agent_id, 0) + hit
+            )
+            self.metrics["prefill_tokens_saved"] += hit
+            self.metrics["prefix_hits"] += 1
+            self._emit(
+                "on_prefix_hit", req.agent_id, req.rid,
+                int(hit), int(p), float(self.now),
+            )
+        if hit >= p:
+            # whole prompt cached: one batched write of the resident head
+            # also samples the first token — zero fused slices, zero extra
+            # iterations, exactly the unfused full-hit cost
+            nxt = self._write_prefix_head(req, p, fetch_tok=True)
+            self._fused_to_decoder(req, nxt)
+            return
+        if hit > 0:
+            self._write_prefix_head(req, hit, fetch_tok=False)
+        else:
+            # slices only write the prompt's own rows: mask out the slot's
+            # stale rows from its previous occupant first
+            _clear_slot_kvpos(self.cache, slot)
+        self._pf = _FusedPrefill(req=req, slot=slot, total=p, written=hit)
+        self._slots_stale = True
+
+    def _write_prefix_head(self, req: EngineRequest, n: int,
+                           fetch_tok: bool):
+        """Write the first ``n`` prompt tokens' K/V into the request's slot
+        via the batched prefill program (single row, 64-token bucket)."""
+        bucket = -(-max(n, 1) // 64) * 64
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :n] = req.prompt[:n]
+        dev = self.device
+        nxt = _prefill_write(
+            self.model, self.cache_len, self.prefill_chunk,
+            self.params, self.cache, torch.from_numpy(toks).to(dev),
+            torch.tensor([n], dtype=torch.int32, device=dev), [req.slot],
+        )
+        if fetch_tok:
+            self.metrics["host_syncs"] += 1
+            return int(nxt.cpu()[0])
+        return None
+
+    def _fused_to_decoder(self, req: EngineRequest, first_tok: int) -> None:
+        """Promote a finished fused prefill to a running decoder: its first
+        decode step — the request's first emitted token — runs in the next
+        window."""
+        slot = req.slot
+        self.slot_req[slot] = req
+        self.slot_last_tok[slot] = first_tok
+        self.slot_pos[slot] = len(req.prompt)
+        self.running.push(req)
+        self._slots_stale = True
 
     def _sync_queue_metrics(self) -> None:
         self.metrics["sorts"] = (
@@ -944,6 +1144,12 @@ class ServeEngine:
         state[1] = self.slot_pos
         for slot, req in self.slot_req.items():
             state[2, slot] = req.max_new_tokens - req.generated
+        if self._pf is not None:
+            # the prefilling slot rides the window frozen (rem 0) with its
+            # pos at the next slice start — the fused program's choreography
+            # relies on it (see _fused_window)
+            state[1, self._pf.slot] = self._pf.written
+            state[2, self._pf.slot] = 0
         self._d_state = torch.from_numpy(state).to(self.device)
         self._slots_stale = False
         self.metrics["host_syncs"] += 1
@@ -970,7 +1176,9 @@ class ServeEngine:
         # need 0 fresh blocks, so zero free is not conclusive there
         if free == 0 and not self.prefix_cache:
             return False
-        if self._held and (self.swapped or self.waiting):
+        if self._held and (
+            self.swapped or (self.waiting and self._pf is None)
+        ):
             # held-KV escalation can free blocks at the very next admit
             # pass, so a failed fit now is not conclusive (PR 9)
             return True
@@ -985,6 +1193,12 @@ class ServeEngine:
                 self._swap_in_fits(req, free) for req in self.swapped
             )
         if self.waiting:
+            if self._pf is not None:
+                # fused mode runs ONE prefill at a time: while it is in
+                # flight the waiting queue is blocked, and the window is
+                # separately capped at slice exhaustion — the first
+                # instant admission can become possible again
+                return False
             if static:
                 return self._admit_fits(self.waiting.peek(), free)
             if len(self.waiting) > 64:
@@ -1021,7 +1235,7 @@ class ServeEngine:
         (updates the hysteresis gate and emits the deferral; ``in_pass``
         is the pass's already-admitted batch, so the idle-pool bypass only
         applies to a genuinely empty pool)."""
-        if not (self.slot_req or in_pass):
+        if not (self.slot_req or self._pf is not None or in_pass):
             return False                       # idle-pool bypass
         low_b, high_b = self._wm
         used = self.alloc.n_blocks - self.alloc.free_blocks
@@ -1047,7 +1261,7 @@ class ServeEngine:
         block usage only grows and the gate state only moves inside
         ``_admit``, so a True verdict stays True for every covered step.
         """
-        if not self.slot_req:
+        if not (self.slot_req or self._pf is not None):
             return False
         low_b, high_b = self._wm
         used = self.alloc.n_blocks - self.alloc.free_blocks
@@ -1075,7 +1289,12 @@ class ServeEngine:
           finishes a STAGE with a successor submits new work and bounds
           the window instead.  With a backlog queued, every completion
           frees a slot an admission could take, so the window ends at the
-          first one.
+          first one;
+        * (fused prefill only) the in-flight prefill's slices do not run
+          out before the window's last step (K <= remaining slices): its
+          last slice completing turns the slot into a decoder AND unblocks
+          waiting-queue admission, both scheduling actions — the window
+          ends exactly there.
         """
         cap = self.max_window if limit is None else min(
             self.max_window, max(1, int(limit))
@@ -1086,6 +1305,9 @@ class ServeEngine:
             # a suspended agent's resume submits new work (PR 9) — any
             # mid-run scheduling trigger must bound the window
             cap = min(cap, int(self._resumes[0][0]) - self.now)
+        if self._pf is not None:
+            chunk = self.prefill_chunk
+            cap = min(cap, -(-(self._pf.total - self._pf.written) // chunk))
         if cap <= 1:
             return 1
         if self.waiting or self.swapped:
@@ -1098,15 +1320,22 @@ class ServeEngine:
         elif self.slot_req:
             # empty queues: only stage-submitting completions schedule.
             # An agent's stage completes when its LAST live request does
-            # (queues empty => all its live requests are running here).
+            # (queues empty => all its live requests are running here;
+            # a fused prefill's request is NOT — its stage cannot complete
+            # within the window, so it binds nothing).
             last_done: dict[int, int] = {}
             for req in self.slot_req.values():
                 rem = req.max_new_tokens - req.generated
                 aid = req.agent_id
                 last_done[aid] = max(last_done.get(aid, 0), rem)
             # never run past the final live completion — the reference
-            # idles there, so extra frozen steps would inflate the clock
-            cap = min(cap, max(last_done.values()))
+            # idles there, so extra frozen steps would inflate the clock.
+            # With a fused prefill in flight the engine is NOT idle after
+            # the last decoder completes: the slice-exhaustion cap above
+            # already bounds the window, so the decoder bound is only
+            # applied when it is the binding one
+            if self._pf is None:
+                cap = min(cap, max(last_done.values()))
             for aid, t_stage in last_done.items():
                 agent = self.agents[aid]
                 # closed-loop agents: a callback may append a stage at ANY
@@ -1134,7 +1363,7 @@ class ServeEngine:
         return 1 << (cap.bit_length() - 1)
 
     def _decode_once(self, limit: Optional[int] = None) -> int:
-        if not self.slot_req:
+        if not self.slot_req and self._pf is None:
             return 1
         # grow each running sequence by one token (may trigger swaps)
         for slot in sorted(self.slot_req):
@@ -1149,7 +1378,7 @@ class ServeEngine:
                 break
             # note: if req itself was swapped out it no longer decodes
         active = sorted(self.slot_req)
-        if not active:
+        if not active and self._pf is None:
             return 1
         k = self._window_size(limit)
         snapshot = [(slot, self.slot_req[slot]) for slot in active]
@@ -1165,10 +1394,29 @@ class ServeEngine:
                     raise AssertionError("window over-committed the pool")
         if self._slots_stale:
             self._refresh_device_slots()
-        self._d_state, toks_dev = _decode_window(
-            self.model, k, self.params, self.cache, self._d_state
-        )
-        toks = toks_dev.cpu().numpy()        # (k, B): THE per-window sync
+        pf = self._pf
+        if pf is not None:
+            # slice the next k prompt chunks host-side; the fused program
+            # advances one per step alongside the decoders
+            chunk = self.prefill_chunk
+            sl = np.zeros((k, chunk), np.int32)
+            for j in range(k):
+                seg = pf.req.prompt[pf.written + j * chunk:
+                                    pf.written + (j + 1) * chunk]
+                sl[j, :len(seg)] = seg
+            self._d_state, toks_dev = _fused_window(
+                self.model, k, chunk, self.params, self.cache,
+                self._d_state, torch.from_numpy(sl).to(self.device),
+                pf.slot, pf.written, pf.total,
+            )
+            out = toks_dev.cpu().numpy()     # (k, B+1): THE per-window sync
+            toks, pf_toks = out[:, :-1], out[:, -1]
+            self.metrics["fused_slices"] += k
+        else:
+            self._d_state, toks_dev = _decode_window(
+                self.model, k, self.params, self.cache, self._d_state
+            )
+            toks = toks_dev.cpu().numpy()    # (k, B): THE per-window sync
         self.metrics["host_syncs"] += 1
         self.metrics["decode_steps"] += k
         self.metrics["windows"] += 1
@@ -1200,6 +1448,15 @@ class ServeEngine:
                     self._dirty_agents.add(req.agent_id)
                 if req.generated >= req.max_new_tokens:
                     self._complete(slot, req)
+        if pf is not None:
+            pf.written += k * self.prefill_chunk
+            if pf.written >= pf.total:
+                # slice exhaustion — the window's last step (the sizer
+                # capped K at exactly this): the final slice's argmax is
+                # the request's first token; it decodes from the next
+                # iteration on
+                self._pf = None
+                self._fused_to_decoder(pf.req, int(pf_toks[k - 1]))
         return k
 
     def _complete(self, slot: int, req: EngineRequest) -> None:

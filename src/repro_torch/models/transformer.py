@@ -23,7 +23,9 @@ Attention runs through the CUDA kernels where the JAX engine ran plain jnp:
   beyond ``pos`` after it, which the engine keeps (``check_slot_contiguous``
   asserts it when ``Model(debug_checks=True)``);
 * chunked prefill (``dense_block_chunk``, queries at an offset) stays on the
-  plain ``attention_any``: no Pallas kernel computes it.
+  plain ``attention_any``: no Pallas kernel computes it.  So does
+  ``prefill_slice`` (one slot's slice against the live cache, the engine's
+  fused prefill), as in JAX.
 
 The ssm family (xLSTM) keeps the JAX layout too: ``params["xlstm_pairs"]``
 holds pair-stacked ``(n_pairs, ...)`` mLSTM/sLSTM leaves and the cache holds
@@ -544,6 +546,67 @@ class Model:
         x = torch.cat(hidden, dim=1)
         logits = self._logits(params, _gather_last(x, lens))
         return logits, cache
+
+    def prefill_slice(self, params, cache: dict, tokens, slot: int,
+                      start: int, total: int):
+        """One bounded prefill slice of a SINGLE batch slot against a live
+        decode cache — the serving engine's fused prefill-in-window unit.
+
+        ``tokens``: (S,) int chunk of the prompt (zero-padded past the
+        prompt's end); ``slot``/``start``/``total``: host ints — the cache
+        row being prefilled, the slice's absolute write offset and the full
+        prompt length.  Follows ``dense_block_chunk``'s rule per layer:
+        write the slice's K/V first (``kv_pos`` at or beyond ``total``
+        written as -1), then attend the queries over the slot's whole cache
+        with ``kv_pos <= q_pos`` masking the chunk-internal future and
+        ``kv_pos >= 0`` the unwritten rows.  Rows at or past the cache end
+        are dropped, as JAX's scatter with ``mode="drop"`` drops them: a
+        padded tail never moves the slice onto valid rows the way a
+        clamped ``update_cache`` write would.
+
+        Returns ``(logits (V,), cache)``, the logits at the prompt's final
+        position clipped into this slice: the first-token distribution
+        when this slice completes the prompt, garbage otherwise.  Dense
+        family only; ring layouts are gated out by the engine.
+        """
+        cfg = self.cfg
+        if cfg.kind not in ("dense", "moe", "vlm"):
+            raise ValueError(
+                f"prefill_slice: unsupported model kind {cfg.kind!r}"
+            )
+        _check_family(cfg)
+        s = tokens.shape[0]
+        dev = tokens.device
+        idx = start + torch.arange(s, dtype=torch.int32, device=dev)
+        positions = idx[None]
+        x = self._embed(params, tokens[None], positions)
+        # rows below the cache end only: the rest of the slice is dropped
+        n = max(0, min(s, cache["k"].shape[2] - start))
+        rows = slice(start, start + n)
+        kv_new = idx[:n].masked_fill(idx[:n] >= total, -1)
+        for l, lp in enumerate(self.layer_params(params)):
+            kc, vc = cache["k"][l, slot], cache["v"][l, slot]
+            kp = cache["kv_pos"][l, slot]
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k_new, v_new = attention_qkv(
+                lp["attn"], h, positions, cfg.rope_theta, cfg.use_rope
+            )
+            kc[rows] = k_new[0, :n].to(kc.dtype)
+            vc[rows] = v_new[0, :n].to(vc.dtype)
+            kp[rows] = kv_new
+            att = attention_any(
+                q, kc[None], vc[None],
+                window=cfg.sliding_window,
+                q_positions=positions,
+                kv_positions=kp[None],
+                kv_valid=kp[None] >= 0,
+            )
+            x = x + attention_out(lp["attn"], att)
+            h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + gated_mlp(lp["mlp"], h2)
+        last = min(max(total - 1 - start, 0), s - 1)
+        logits = self._logits(params, x[:, last][:, None, :])
+        return logits[0, 0], cache
 
     def _fill_kv(self, cache, ks, vs, lens, s):
         """Copy prefill K/V (per layer (B,S,n,h)) into the cache's first S

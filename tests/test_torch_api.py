@@ -14,8 +14,9 @@
   the JAX package, and the port's own runs at two configs (reduced
   float32, and a wider bfloat16 one) equal it, which is why it can hold
   the full-width bfloat16 model on the card (``chip_smoke.py`` phase 7).
-* The sim backend, the launchers, the refused flags, and a port copy of the
-  event grammar of ``tests/test_event_conformance.py``.
+* The sim backend, the launchers, ``prefix_cache`` and ``fused_prefill``
+  through ``service_for_backend``, and a port copy of the event grammar of
+  ``tests/test_event_conformance.py``.
 """
 
 import contextlib
@@ -144,6 +145,12 @@ def test_record_covers_the_phase_7_runs():
     assert tooluse["counters"][0]["suspensions"] == 4
     assert tooluse["counters"][0]["suspend_spills"] == 4
     assert len(RECORD["runs"]["fleet"]["counters"]) == 2
+    runs = RECORD["runs"]
+    for name in ("prefix", "fused_prefix"):
+        assert runs[name]["counters"][0]["prefix_hits"] > 0
+    for name in ("fused", "fused_prefix"):
+        assert runs[name]["counters"][0]["fused_slices"] > 0
+    assert runs["fused_prefix"]["counters"][0]["suspensions"] == 4
 
 
 @pytest.mark.parametrize("config", ["f32", "bf16-wide"])
@@ -184,13 +191,24 @@ def test_xlstm_open_run_matches_jax():
 
 
 @pytest.mark.parametrize("flag", ["prefix_cache", "fused_prefill"])
-def test_unported_flags_raise_through_the_api(granite, flag):
-    _, _, tm, tp = granite
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.AgentService.engine(tm, tp, "justitia", **{flag: True})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.service_for_backend("engine", "justitia", device="cpu",
-                                **{flag: True})
+def test_flag_serves_through_service_for_backend(flag):
+    """``service_for_backend("engine", ..., flag=True)`` builds and serves
+    the closed-loop workload as the JAX package's does (each side from its
+    own seeded weights: the record does not depend on them)."""
+    run = dict(workload="closed", seed=20260731, n_agents=5)
+    out = []
+    for pkg, kw in ((jax_api, {}), (api, {"device": "cpu"})):
+        svc = pkg.service_for_backend("engine", "justitia", pool_tokens=512,
+                                      **{flag: True}, **kw)
+        handles = svc.submit_many(smoke.api_specs(pkg, run))
+        res = svc.drain()
+        out.append((res.finish, res.jct,
+                    {k: res.metrics[k] for k in smoke.API_COUNTERS},
+                    [[smoke.event_row(e) for e in h.events]
+                     for h in handles]))
+    assert out[1] == out[0]
+    counter = "prefix_hits" if flag == "prefix_cache" else "fused_slices"
+    assert out[1][2][counter] > 0
 
 
 def test_no_device_named_raises():

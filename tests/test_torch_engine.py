@@ -198,11 +198,17 @@ def test_engine_suspension_matches_jax(engines, retention):
 
 
 @pytest.mark.parametrize("flag", ["prefix_cache", "fused_prefill"])
-def test_unported_flags_raise(engines, flag):
-    _, _, mk, model, params, extra = engines["torch"]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(model, params, mk("justitia", 4096.0), **{flag: True},
-                    **extra)
+def test_engine_flag_matches_jax(engines, flag):
+    """Each flag alone, on the seeded agents with no shared prompt heads
+    (tests/test_torch_prefix.py and test_torch_fused.py serve ones that
+    share them): the same run as the JAX engine's, every sampled token
+    equal."""
+    jax_run, torch_run = run_both(engines, "justitia", pool_tokens=256,
+                                  prefill_chunk=8, **{flag: True})
+    assert_same(jax_run, torch_run)
+    assert torch_run[1].tokens == jax_run[1].tokens
+    assert (torch_run[2].metrics["fused_slices"] > 0) == (
+        flag == "fused_prefill")
 
 
 # ------------------------------------------------------------------- xLSTM
