@@ -33,7 +33,13 @@ Phases, each of which fails the run (exit code 1) on error:
    kernel of ``scripts/launch_floor.cu``, which does nothing, launched with
    their blocks, threads and shared memory), for paged decode also the
    slot caches of 100 and 97 tokens, in the pages ``Model.decode`` views
-   them in;
+   them in; then paged decode and flash prefill at the shapes of the
+   decoder-only zoo's full-width archs (``ZOO_SHAPES``: llama2-7b's qpk 1,
+   llama3.2-3b's qpk 3, starcoder2-7b's qpk 9 at hd 128, h2o-danube-1.8b's
+   hd 80, mixtral-8x7b's window, at B 8 and 512 tokens) and flash at
+   h2o-danube's windowed prefill past the window (``H2O_PREFILL``), all
+   within ``TOL``, and the kernel, plain, SDPA and bound at llama2-7b's
+   decode and prefill and at that windowed prefill;
 4. reduced engines: reduced granite-3-2b and reduced xlstm-350m at float32
    served on the GPU (the kernels) and on the CPU (the plain versions)
    under three schedulers with a pool small enough to force swaps;
@@ -43,7 +49,11 @@ Phases, each of which fails the run (exit code 1) on error:
    and a cache of 96 tokens, in 16-token slices under justitia and in
    80-token slices under vtc (each slice after a hit runs past the cache
    end): completions, clock, counters and every sampled token equal, the
-   cache hitting, slices running and the pool swapping;
+   cache hitting, slices running and the pool swapping; then the zoo
+   (``reduced_zoo``): reduced mixtral-8x7b over its ring, and with its
+   full-width window over a full cache with fused prefill off and on,
+   and reduced h2o-danube-1.8b at ``cache_len`` 160 for prompts longer
+   than its window of 64, every sampled token equal;
 5. full width, granite-3-2b at bfloat16 (40 layers, d_model 2048, random
    weights from a seed) served by ``ServeEngine`` (max_batch 8, cache_len
    512, pool 4096 tokens, justitia) for seeded agents; every agent
@@ -75,11 +85,26 @@ Phases, each of which fails the run (exit code 1) on error:
    --backend engine`` at both archs, as users start it (on the card), whose ``jct:`` and
    ``completions:`` lines must equal the JAX launcher's; (c) one prefill
    and one decode step of reduced granite-3-2b at bfloat16 on the card
-   against the CPU, logged: the logits' max |d| and the argmax agreement.
+   against the CPU, logged: the logits' max |d| and the argmax agreement;
+8. the decoder-only zoo at full width, bf16, random weights from a seed,
+   each model freed before the next: (a) llama2-7b (all 32 layers) and
+   (b) mixtral-8x7b (d_model 4096, 8 experts of d_ff 14336, top-2,
+   window 4096; cut to 16 of 32 layers, ``ZOO_CUTS``) in
+   the ``open`` and ``fused`` runs of ``API_RUNS``, held to the JAX
+   record as in phase 7 (no run's record depends on the arch), then a
+   profiled decode step at B 8 and, for mixtral, the MoE layers' share of
+   it; (c) ``RING_RUN``: h2o-danube-1.8b (all 24 layers) over a 4096-row
+   ring, held to the JAX engine's record of the same lengths, paged decode
+   launched 0 times and flash n_layers x prefill passes, each past the
+   window; (d) llama3.2-3b and starcoder2-7b (all layers) serving phase
+   5's agents, every budget complete.
 
-Each full-width phase and each phase-7 run zeroes the launch counts just
-before it serves and reads them just after.  The last lines are the card's name and power
-limit, one ``{"kernels": ...}`` JSON line and, last, ``{"ok": true,
+Each full-width phase and each phase-7 and phase-8 run zeroes the launch
+counts just before it serves and reads them just after; each phase's wall
+time is logged when the next starts.  The last lines are the card's name and power
+limit, one ``{"kernels": ...}`` JSON line (launches summed over phases 5,
+6 and 8; max |d| the larger of the granite and llama2-7b shapes' in
+bfloat16) and, last, ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the repository
 beside it, the script exits non-zero and prints no result.
 
@@ -123,6 +148,17 @@ TENSOR_CORE_KERNELS = ("flash_tc_kernel", "mlstm_chunk_states_kernel",
                        "mlstm_chunk_outputs_kernel")
 #: xlstm-350m's prefill of one prompt at the longest cache
 XLSTM = dict(b=1, nh=4, s=512, hd=256)
+#: phase 3's shapes of the decoder-only zoo's full-width archs: name ->
+#: (q heads, kv heads, head dim, window) at batch 8 and 512 tokens
+ZOO_SHAPES = {
+    "llama2-7b": (32, 32, 128, 0),        # MHA, qpk 1
+    "llama3.2-3b": (24, 8, 128, 0),       # qpk 3
+    "starcoder2-7b": (36, 4, 128, 0),     # qpk 9
+    "h2o-danube-1.8b": (32, 8, 80, 4096),  # hd 80
+    "mixtral-8x7b": (32, 8, 128, 4096),
+}
+#: h2o-danube-1.8b's windowed prefill: B, S (past the window), window
+H2O_PREFILL = dict(b=2, s=4608, window=4096)
 #: the JAX engine's runs that phase 7 is held to, made on the CPU at
 #: reduced width by scripts/record_jax_api_runs.py (tests/test_torch_api.py
 #: regenerates it and requires it unchanged)
@@ -160,12 +196,47 @@ API_COUNTERS = ("tokens", "prefills", "swaps", "decode_steps",
                 "suspensions", "resumes", "suspend_spills", "prefix_hits",
                 "prefill_tokens_saved", "fused_slices")
 #: the launcher runs of the record: ``--backend engine`` at each arch
-LAUNCHER_ARCHS = ("granite-3-2b", "xlstm-350m")
+#: (the paper's llama2-7b, and mixtral-8x7b: the MoE over a ring cache at
+#: the launcher's reduced width, window 64 in 512 tokens)
+LAUNCHER_ARCHS = ("granite-3-2b", "xlstm-350m", "llama2-7b", "mixtral-8x7b")
 LAUNCHER_TIMEOUT_S = 300
+#: phase 8's ring run: h2o-danube-1.8b at its own window of 4096 in a
+#: 6144-token cache (a 4096-row ring) under justitia, for seeded agents of
+#: one stage of 1-2 inferences, prompts of 4,200-5,600 tokens and 64-256
+#: new tokens each; the record's script serves it on the JAX engine at
+#: reduced width with the window kept (the clock does not depend on width)
+RING_RUN = dict(arch="h2o-danube-1.8b", seed=2028, n_agents=4,
+                p_range=(4200, 5601), d_range=(64, 257), max_batch=4,
+                cache_len=6144, pool_tokens=16384)
+#: the engine counters the ring run's record holds
+RING_COUNTERS = ("tokens", "prefills", "swaps", "decode_steps")
+#: phase 8's runs of ``API_RUNS`` at llama2-7b and mixtral-8x7b
+ZOO_API_RUNS = ("open", "fused")
+#: phase 8's depth cuts: arch -> (layers served, why)
+ZOO_CUTS = {"mixtral-8x7b": (16, "32 layers are 93 GB at bf16, more than "
+                                 "the card's 80 GB")}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class PhaseClock:
+    """Logs each phase's header and, when the next starts, its wall
+    time."""
+
+    def __init__(self):
+        self.t0 = self.at = time.perf_counter()
+        self.name = None
+
+    def start(self, name) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            log(f"  phase {self.name.split('.')[0]}: {now - self.at:.1f} s "
+                f"(script at {now - self.t0:.1f} s)")
+        self.name, self.at = name, now
+        if name is not None:
+            log(f"== {name}")
 
 
 def card_line() -> str:
@@ -229,30 +300,35 @@ def _sdpa(q, k, v, **kw):
 # ------------------------------------------------------------------ phase 3
 
 
-def check_paged(ops, ref, torch, gen, split_plan, decode_page):
-    """Paged decode against its plain version; returns the max |d| at the
-    granite shape in bfloat16.  The case with a length of 0 is held against
-    the plain version of the split walk, which floors l as the kernel and
-    the Pallas kernel do (the plain attention gives NaN there).  The slot
-    caches of 100 and 97 rows are viewed as ``Model.decode`` views them, in
-    pages of ``decode_page(T)`` tokens."""
-    cases = [  # b, nh, n_kv, hd, page size, n_pages, max_pages, lengths
-        (2, 4, 4, 64, 16, 16, 4, [1, 64]),            # MHA
-        (4, 8, 2, 32, 16, 40, 6, [1, 16, 17, 96]),    # GQA, length edges
-        (2, 8, 1, 128, 16, 16, 8, [16, 128]),         # MQA
-        (8, 32, 8, 64, 16, 256, 32, None),            # granite, slot pages
-        (3, 8, 2, 64, 16, 64, 20, "edges"),           # split edges, length 0
+def check_paged(ops, ref, torch, gen, split_plan, decode_page) -> dict:
+    """Paged decode against its plain version; returns the max |d| in
+    bfloat16 at each named shape (granite-3-2b's and ``ZOO_SHAPES``').  The
+    case with a length of 0 is held against the plain version of the split
+    walk, which floors l as the kernel and the Pallas kernel do (the plain
+    attention gives NaN there).  The slot caches of 100 and 97 rows are
+    viewed as ``Model.decode`` views them, in pages of ``decode_page(T)``
+    tokens; the zoo's slot caches hold 512 tokens in 16-token pages."""
+    cases = [  # generator, name, b, nh, n_kv, hd, page size, n_pages,
+        #        max_pages, lengths
+        (gen, "", 2, 4, 4, 64, 16, 16, 4, [1, 64]),          # MHA
+        (gen, "", 4, 8, 2, 32, 16, 40, 6, [1, 16, 17, 96]),  # length edges
+        (gen, "", 2, 8, 1, 128, 16, 16, 8, [16, 128]),       # MQA
+        (gen, "granite-3-2b", 8, 32, 8, 64, 16, 256, 32, None),  # slot pages
+        (gen, "", 3, 8, 2, 64, 16, 64, 20, "edges"),     # split edges, 0
     ]
+    # the other cases draw from generators of their own, so that every
+    # input above is what earlier trees' runs drew (comparable)
+    own = torch.Generator(device="cuda").manual_seed(100)
     for t in (100, 97):   # granite's slots at cache lengths 16 does not divide
         bs = decode_page(t)
-        cases.append((8, 32, 8, 64, bs, 8 * t // bs, t // bs, None))
-    # those two cases draw from a generator of their own, so that every
-    # other phase-3 input is what earlier trees' runs drew (comparable)
-    own = torch.Generator(device="cuda").manual_seed(100)
-    granite_err = None
+        cases.append((own, "", 8, 32, 8, 64, bs, 8 * t // bs, t // bs, None))
+    zoo = torch.Generator(device="cuda").manual_seed(200)
+    for arch, (nh, n_kv, hd, _) in ZOO_SHAPES.items():
+        cases.append((zoo, arch, 8, nh, n_kv, hd, 16, 8 * 32, 32, None))
+    errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for b, nh, n_kv, hd, bs, n_pages, mp, lengths in cases:
-            gen_case = gen if bs == 16 else own
+        for gen_case, label, b, nh, n_kv, hd, bs, n_pages, mp, lengths in \
+                cases:
             q = torch.randn(b, nh, hd, generator=gen_case,
                             device="cuda").to(dtype)
             kp, vp = (torch.randn(n_pages, bs, n_kv, hd, generator=gen_case,
@@ -283,33 +359,42 @@ def check_paged(ops, ref, torch, gen, split_plan, decode_page):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             name = str(dtype).split(".")[-1]
-            log(f"  paged {name:8s} b={b} nh={nh} n_kv={n_kv} hd={hd} "
-                f"page={bs} split={n_split}x{per} pages "
-                f"lengths={lens.tolist()} max|d|={err:.3g}")
+            log(f"  paged {name:8s} {label + ': ' if label else ''}b={b} "
+                f"nh={nh} n_kv={n_kv} hd={hd} page={bs} split={n_split}x"
+                f"{per} pages lengths={lens.tolist()} max|d|={err:.3g}")
             if not err <= TOL[name]:
                 raise AssertionError(f"paged decode differs by {err}")
-            if lengths is None and bs == 16 and dtype == torch.bfloat16:
-                granite_err = err
-    return granite_err
+            if label and dtype == torch.bfloat16:
+                errs[label] = err
+    return errs
 
 
-def check_flash(ops, ref, torch, gen, flash_path):
-    """Flash prefill against its plain version; returns the max |d| at the
-    granite shape in bfloat16."""
-    cases = [  # b, s, nh, n_kv, hd, window
-        (1, 64, 4, 2, 32, 0),
-        (8, 128, 8, 2, 64, 0),
-        (1, 512, 4, 1, 128, 0),
-        (8, 128, 4, 4, 64, 48),
-        (1, 512, 32, 8, 64, 128),
-        (8, 512, 32, 8, 64, 0),       # granite, the largest bucket
+def check_flash(ops, ref, torch, gen, flash_path) -> dict:
+    """Flash prefill against its plain version; returns the max |d| in
+    bfloat16 at each named shape (granite-3-2b's largest bucket, and
+    ``ZOO_SHAPES``' at B 8 and S 512 and ``H2O_PREFILL``, which draw from a
+    generator of their own)."""
+    cases = [  # generator, name, b, s, nh, n_kv, hd, window
+        (gen, "", 1, 64, 4, 2, 32, 0),
+        (gen, "", 8, 128, 8, 2, 64, 0),
+        (gen, "", 1, 512, 4, 1, 128, 0),
+        (gen, "", 8, 128, 4, 4, 64, 48),
+        (gen, "", 1, 512, 32, 8, 64, 128),
+        (gen, "granite-3-2b", 8, 512, 32, 8, 64, 0),   # the largest bucket
     ]
-    granite_err = None
+    zoo = torch.Generator(device="cuda").manual_seed(201)
+    for arch, (nh, n_kv, hd, window) in ZOO_SHAPES.items():
+        cases.append((zoo, arch, 8, 512, nh, n_kv, hd, window))
+    h = H2O_PREFILL
+    nh, n_kv, hd, _ = ZOO_SHAPES["h2o-danube-1.8b"]
+    cases.append((zoo, "h2o-danube-1.8b past the window", h["b"], h["s"], nh,
+                  n_kv, hd, h["window"]))
+    errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s, nh, n_kv, hd, window in cases:
-            q = torch.randn(b, s, nh, hd, generator=gen,
+        for gen_case, label, b, s, nh, n_kv, hd, window in cases:
+            q = torch.randn(b, s, nh, hd, generator=gen_case,
                             device="cuda").to(dtype)
-            k, v = (torch.randn(b, s, n_kv, hd, generator=gen,
+            k, v = (torch.randn(b, s, n_kv, hd, generator=gen_case,
                                 device="cuda").to(dtype) for _ in range(2))
             got = ops.flash_prefill(q, k, v, window=window, block_q=64,
                                     block_k=64)
@@ -319,14 +404,15 @@ def check_flash(ops, ref, torch, gen, flash_path):
             ).transpose(1, 2)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
+            del want
             name = str(dtype).split(".")[-1]
-            log(f"  flash {name:8s} b={b} S={s} nh={nh} n_kv={n_kv} hd={hd} "
-                f"window={window} path={flash_path(dtype, hd, s)} "
-                f"max|d|={err:.3g}")
+            log(f"  flash {name:8s} {label + ': ' if label else ''}b={b} "
+                f"S={s} nh={nh} n_kv={n_kv} hd={hd} window={window} "
+                f"path={flash_path(dtype, hd, s)} max|d|={err:.3g}")
             if not err <= TOL[name]:
                 raise AssertionError(f"flash prefill differs by {err}")
-            if (b, s, nh) == (8, 512, 32) and dtype == torch.bfloat16:
-                granite_err = err
+            if label and dtype == torch.bfloat16:
+                errs[label] = err
     q = torch.zeros((1, 100, 2, 64), device="cuda")
     try:
         ops.flash_prefill(q, q, q, block_q=64, block_k=64)
@@ -335,21 +421,26 @@ def check_flash(ops, ref, torch, gen, flash_path):
             "contract asks")
     else:
         raise AssertionError("flash prefill accepted a misaligned S")
-    return granite_err
+    return errs
 
 
-def time_paged(ops, ref, torch, gen, t_len: int = 512, bs: int = 16):
+def time_paged(ops, ref, torch, gen, t_len: int = 512, bs: int = 16,
+               shape=None):
     """Granite decode shape: B=8 slots of ``t_len`` tokens (512: 32 pages
     of ``bs`` = 16), bf16, every slot full, one layer's call; 40 distinct
-    layer caches rotate to keep L2 cold."""
+    layer caches rotate to keep L2 cold.  ``shape``: another model's
+    (B, nh, n_kv, hd, layers), at 512 tokens."""
     b, nh, n_kv, hd = 8, GRANITE["nh"], GRANITE["n_kv"], GRANITE["hd"]
+    n_sets = GRANITE["n_layers"]
+    if shape is not None:
+        b, nh, n_kv, hd, n_sets = shape
     mp = t_len // bs
     dt = torch.bfloat16
     tables = torch.arange(b * mp, dtype=torch.int32,
                           device="cuda").reshape(b, mp)
     lens = torch.full((b,), mp * bs, dtype=torch.int32, device="cuda")
     sets = []
-    for _ in range(GRANITE["n_layers"]):
+    for _ in range(n_sets):
         q = torch.randn(b, nh, hd, generator=gen, device="cuda").to(dt)
         kp, vp = (torch.randn(b * mp, bs, n_kv, hd, generator=gen,
                               device="cuda").to(dt) for _ in range(2))
@@ -379,36 +470,73 @@ def time_paged(ops, ref, torch, gen, t_len: int = 512, bs: int = 16):
                       f"page={bs} bf16")
 
 
-def time_flash(ops, ref, torch, gen):
+def time_flash(ops, ref, torch, gen, shape=None, n_sets: int = 8):
     """Granite prefill shape: B=8, S=512 (the largest bucket), bf16, one
-    layer's call; 8 distinct input sets rotate to keep L2 cold."""
+    layer's call; ``n_sets`` distinct input sets rotate to keep L2 cold.
+    ``shape``: another (B, S, nh, n_kv, hd, window); with a window the
+    library call takes it as a boolean mask."""
     b, s, nh, n_kv, hd = 8, 512, GRANITE["nh"], GRANITE["n_kv"], GRANITE["hd"]
+    window = 0
+    if shape is not None:
+        b, s, nh, n_kv, hd, window = shape
     dt = torch.bfloat16
     sets = []
-    for _ in range(8):
+    for _ in range(n_sets):
         q = torch.randn(b, s, nh, hd, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, s, n_kv, hd, generator=gen,
                             device="cuda").to(dt) for _ in range(2))
         sets.append((q, k, v))
     def kernel(q, k, v):
-        return ops.flash_prefill(q, k, v, block_q=64, block_k=64)
+        return ops.flash_prefill(q, k, v, window=window, block_q=64,
+                                 block_k=64)
 
     def plain(q, k, v):
         return ref.flash_attention_ref((q * hd ** -0.5).transpose(1, 2),
-                                       k.transpose(1, 2), v.transpose(1, 2))
+                                       k.transpose(1, 2), v.transpose(1, 2),
+                                       window=window)
+
+    mask = None
+    if window:
+        i = torch.arange(s, device="cuda")
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
 
     def library(q, k, v):
+        if mask is None:
+            return _sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), is_causal=True)
         return _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                     is_causal=True)
+                     attn_mask=mask)
 
     t = device_ms({"kernel": kernel, "plain": plain, "library": library},
                   sets, iters=20)
     n_bytes = 2 * (2 * b * s * nh * hd + 2 * b * s * n_kv * hd)
-    flops = 2 * 2 * b * nh * hd * s * (s + 1) // 2   # causal pairs
+    # the (query, key) pairs the causal mask, and the window, leave
+    pairs = sum(min(i + 1, window or s) for i in range(s))
+    flops = 2 * 2 * b * nh * hd * pairs
     bound, by = bound_ms(n_bytes, flops, "bfloat16")
     return dict(ms=t["kernel"], plain_ms=t["plain"],
                 library_ms=t["library"], bound_ms=bound, bound_by=by,
-                shape=f"B={b} S={s} nh={nh} n_kv={n_kv} hd={hd} causal bf16")
+                shape=f"B={b} S={s} nh={nh} n_kv={n_kv} hd={hd} causal"
+                      f"{f' window={window}' if window else ''} bf16")
+
+
+def time_zoo(ops, ref, torch) -> dict:
+    """Kernel, plain version, SDPA and bound at llama2-7b's serving shapes
+    (paged decode over B 8 slots of 512 tokens, flash prefill at B 8, S
+    512) and flash at h2o-danube-1.8b's windowed prefill
+    (``H2O_PREFILL``; SDPA with the window as a boolean mask), bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(202)
+    nh, n_kv, hd, _ = ZOO_SHAPES["llama2-7b"]
+    out = {"paged llama2-7b": time_paged(ops, ref, torch, gen,
+                                         shape=(8, nh, n_kv, hd, 32)),
+           "flash llama2-7b": time_flash(ops, ref, torch, gen,
+                                         shape=(8, 512, nh, n_kv, hd, 0))}
+    h = H2O_PREFILL
+    nh, n_kv, hd, _ = ZOO_SHAPES["h2o-danube-1.8b"]
+    out["flash h2o-danube-1.8b"] = time_flash(
+        ops, ref, torch, gen, shape=(h["b"], h["s"], nh, n_kv, hd,
+                                     h["window"]), n_sets=2)
+    return out
 
 
 def _mlstm_inputs(torch, gen, b, h, s, hd, dtype, state: bool):
@@ -620,12 +748,24 @@ def serving_agents(pkg, vocab: int):
                          vocab)
 
 
-class TokenLog:
-    def __init__(self):
-        self.tokens = {}
+class EventLog:
+    """Every engine listener callback as a row ``[name, *args]``, the token
+    value of ``on_token`` kept aside (per agent) and left out of the row."""
 
-    def on_token(self, aid, rid, tok, t):
-        self.tokens.setdefault(aid, []).append(int(tok))
+    def __init__(self):
+        self.rows, self.tokens = [], {}
+
+    def __getattr__(self, name):
+        if not name.startswith("on_"):
+            raise AttributeError(name)
+
+        def note(*args):
+            if name == "on_token":
+                self.tokens.setdefault(int(args[0]), []).append(int(args[2]))
+                args = args[:2] + args[3:]
+            self.rows.append([name, *args])
+
+        return note
 
 
 def to_device(tree, device):
@@ -643,13 +783,7 @@ def reduced_engine(torch, pkg, arch: str, flags: bool = False, **over):
     starts after a prefix hit runs past the cache end, whose rows must be
     dropped): the sampled tokens must be equal, the cache must hit, the
     fused slices must run and the pool must swap."""
-    import numpy as np
-
     cfg = pkg["get_config"](arch).reduced(**over)
-    cpu_model = pkg["Model"](cfg, device="cpu")
-    cpu_params = cpu_model.init(seed=0)
-    gpu_model = pkg["Model"](cfg, device="cuda", debug_checks=True)
-    gpu_params = to_device(cpu_params, "cuda")
     keys = ("tokens", "prefills", "swaps", "decode_steps")
     cases = [(sched, dict(cache_len=128))
              for sched in ("justitia", "vtc", "vllm-fcfs")]
@@ -660,26 +794,51 @@ def reduced_engine(torch, pkg, arch: str, flags: bool = False, **over):
                               cache_len=96, prefill_chunk=chunk))
                  for sched, chunk in (("justitia", 16), ("vtc", 80))]
         pool = 192
+
+    def agents(classes):
+        if flags:
+            return shared_prefix_agents(*classes, 5, 8, cfg.vocab)
+        return seeded_agents(*classes, 5, 8, (16, 64), (24, 60),
+                             cfg.vocab)[0]
+
+    for g, match in engines_equal(torch, pkg, cfg, cases, pool, agents,
+                                  keys, shown=flags):
+        if flags and (g["prefix_hits"] == 0 or g["fused_slices"] == 0):
+            raise AssertionError("the prefix cache did not hit or no fused "
+                                 "slice ran")
+        if g["swaps"] == 0:
+            raise AssertionError(f"pool {pool} did not force a swap")
+        if (cfg.kind == "ssm" or flags) and match != 1.0:
+            raise AssertionError(f"sampled tokens differ: match {match}")
+
+
+def engines_equal(torch, pkg, cfg, cases, pool: int, make_agents, keys,
+                  shown: bool = True) -> list:
+    """Serve ``make_agents((agent_cls, spec, cost))`` on ``cfg`` at f32 on
+    the GPU (kernels, ``Model(debug_checks=True)``) and on the CPU (plain),
+    once per ``(scheduler, engine arguments)`` of ``cases``, from the same
+    parameters; the completions, the clock and the counters ``keys`` must
+    be equal.  Returns per case the GPU's numbers and the share of sampled
+    tokens that are equal."""
+    import numpy as np
+
+    cpu_model = pkg["Model"](cfg, device="cpu")
+    cpu_params = cpu_model.init(seed=0)
+    gpu_model = pkg["Model"](cfg, device="cuda", debug_checks=True)
+    gpu_params = to_device(cpu_params, "cuda")
+    classes = (pkg["EngineAgent"], pkg["InferenceSpec"], pkg["agent_cost"])
+    out = []
     for sched, engine_kw in cases:
         runs = []
         for model, params, dev in ((gpu_model, gpu_params, "cuda"),
                                    (cpu_model, cpu_params, "cpu")):
-            toks = TokenLog()
+            toks = EventLog()
             eng = pkg["ServeEngine"](
                 model, params, pkg["make_scheduler"](sched, float(pool)),
                 pool_tokens=pool, max_batch=4, listener=toks, device=dev,
                 **engine_kw,
             )
-            if flags:
-                agents = shared_prefix_agents(
-                    pkg["EngineAgent"], pkg["InferenceSpec"],
-                    pkg["agent_cost"], 5, 8, cfg.vocab)
-            else:
-                agents, _ = seeded_agents(pkg["EngineAgent"],
-                                          pkg["InferenceSpec"],
-                                          pkg["agent_cost"], 5, 8, (16, 64),
-                                          (24, 60), cfg.vocab)
-            for a in agents:
+            for a in make_agents(classes):
                 eng.submit_agent(a)
             eng.run_until_idle()
             eng.alloc.check_invariants()
@@ -691,30 +850,63 @@ def reduced_engine(torch, pkg, arch: str, flags: bool = False, **over):
         flat_c = np.concatenate([ct[a] for a in sorted(ct)])
         match = float(np.mean(flat_g == flat_c)) if len(flat_g) == len(
             flat_c) else 0.0
-        log(f"  {arch} {sched:9s} "
-            f"{engine_kw if flags else ''} gpu={g} cpu_equal={g == c} "
+        log(f"  {cfg.name} {sched:9s} "
+            f"{engine_kw if shown else ''} gpu={g} cpu_equal={g == c} "
             f"token_match={match:.4f}")
         if g != c:
             raise AssertionError(f"GPU and CPU engines differ: {g} vs {c}")
-        if flags and (g["prefix_hits"] == 0 or g["fused_slices"] == 0):
-            raise AssertionError("the prefix cache did not hit or no fused "
-                                 "slice ran")
-        if g["swaps"] == 0:
-            raise AssertionError(f"pool {pool} did not force a swap")
-        if (cfg.kind == "ssm" or flags) and match != 1.0:
-            raise AssertionError(f"sampled tokens differ: match {match}")
+        out.append((g, match))
+    return out
 
 
-def full_width(torch, pkg, ops, arch: str):
-    """Serve ``arch`` at full width from random weights; returns the launch
-    counts of the family's kernels over the serving run, the model and its
-    parameters."""
-    cfg = pkg["get_config"](arch)
-    ssm = cfg.kind == "ssm"
+def reduced_zoo(torch, pkg) -> None:
+    """Phase 4's engines of the decoder-only zoo, at f32, card against
+    CPU, every sampled token equal: reduced mixtral-8x7b (4 experts,
+    top-2) over its ring (window 64, cache 128) under justitia and vtc,
+    then with its full-width window of 4096 over a full 128-token cache
+    (paged decode) with fused prefill off and on; reduced h2o-danube-1.8b
+    (window 64) at ``cache_len`` 160 for prompts of 70-120 tokens, longer
+    than the window and bucket-padded past it, so that ``_fill_kv`` keeps
+    the last 64 and decode wraps."""
+    keys = ("tokens", "prefills", "swaps", "decode_steps", "fused_slices")
+    mixtral = pkg["get_config"]("mixtral-8x7b")
+
+    def short(classes):
+        return seeded_agents(*classes, 5, 8, (16, 64), (24, 60),
+                             mixtral.reduced().vocab)[0]
+
+    def long(classes):
+        return seeded_agents(*classes, 6, 6, (70, 121), (16, 40),
+                             mixtral.reduced().vocab)[0]
+
+    runs = [
+        (mixtral.reduced(), [(s, dict(cache_len=128))
+                             for s in ("justitia", "vtc")], 256, short),
+        (mixtral.reduced(sliding_window=mixtral.sliding_window),
+         [("justitia", dict(cache_len=128, prefill_chunk=16,
+                            fused_prefill=fused)) for fused in (False, True)],
+         256, short),
+        (pkg["get_config"]("h2o-danube-1.8b").reduced(),
+         [(s, dict(cache_len=160)) for s in ("justitia", "vtc")], 512, long),
+    ]
+    for cfg, cases, pool, agents in runs:
+        for (sched, kw), (g, match) in zip(cases, engines_equal(
+                torch, pkg, cfg, cases, pool, agents, keys)):
+            if match != 1.0:
+                raise AssertionError(f"{cfg.name} {sched} {kw}: sampled "
+                                     f"tokens differ, match {match}")
+            if kw.get("fused_prefill") and not g["fused_slices"]:
+                raise AssertionError(f"{cfg.name}: no fused slice ran")
+
+
+def build_full_width(torch, pkg, cfg, note: str = ""):
+    """``cfg``'s model on the card with random weights from seed 0, after
+    collecting what earlier phases left; logs its size.  Returns the model,
+    its parameters and the bytes still allocated before it was built."""
     # an earlier phase's engine is freed only by the cycle collector (its
     # timed methods refer back to it): collect it, and count what is still
     # allocated (an earlier model kept for phase 7), so that the peak
-    # memory below is this phase's own
+    # memory of the phase is its own
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -723,12 +915,28 @@ def full_width(torch, pkg, ops, arch: str):
     params = model.init(seed=0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"  {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
+    moe = (f" {cfg.n_experts} experts top-{cfg.top_k}" if cfg.is_moe
+           else "")
+    window = (f" window={cfg.sliding_window}" if cfg.sliding_window
+              else "")
+    log(f"  {cfg.name}: {cfg.n_layers} layers{note} d_model={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab} {cfg.dtype}; "
-        f"{n_params / 1e9:.3f} B parameters from seed 0 in "
-        f"{time.perf_counter() - t0:.1f} s")
-    toks = TokenLog()
+        f"d_ff={cfg.d_ff}{moe}{window} vocab={cfg.vocab} {cfg.dtype}; "
+        f"{n_params / 1e9:.3f} B parameters "
+        f"({(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB) from "
+        f"seed 0 in {time.perf_counter() - t0:.1f} s")
+    return model, params, held
+
+
+def full_width(torch, pkg, ops, arch: str, profile: bool = True):
+    """Serve ``arch`` at full width from random weights; returns the launch
+    counts of the family's kernels over the serving run, the model and its
+    parameters.  ``profile``: profile a decode step and a prefill after
+    the run."""
+    cfg = pkg["get_config"](arch)
+    ssm = cfg.kind == "ssm"
+    model, params, held = build_full_width(torch, pkg, cfg)
+    toks = EventLog()
     eng = pkg["ServeEngine"](
         model, params, pkg["make_scheduler"]("justitia", 4096.0),
         pool_tokens=4096, max_batch=8, cache_len=512, listener=toks,
@@ -807,6 +1015,9 @@ def full_width(torch, pkg, ops, arch: str):
     if logits.shape != (8, 1, cfg.vocab) or not bool(
             torch.isfinite(logits.float()).all()):
         raise AssertionError("full-width logits are not finite")
+    if not profile:
+        return ({k: launches[k] for k in ("paged_attention",
+                                          "flash_attention")}, model, params)
     profile_decode(torch, model, params, eng.cache,
                    eng._d_state[0][:, None].clone(), eng._d_state[1].clone())
     if ssm:
@@ -838,7 +1049,8 @@ def _device_rows(prof, per: int):
 def profile_decode(torch, model, params, cache, toks, pos, steps: int = 4):
     """Where a full-width decode step's time goes: host wall per step, the
     kernels launched per step, the device's busy time (sum of kernel times)
-    and the kernels that take most of it, from ``torch.profiler``."""
+    and the kernels that take most of it, from ``torch.profiler``.  Returns
+    the busy time per step in us (0 where the profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -856,6 +1068,7 @@ def profile_decode(torch, model, params, cache, toks, pos, steps: int = 4):
         "  profile: the profiler recorded no device time (not measured)")
     for dev, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {dev:9.1f} us/step {count:5d} calls/step  {key[:70]}")
+    return busy
 
 
 def profile_prefill(torch, model, params, s: int = 256):
@@ -1111,6 +1324,57 @@ def record_diff(got: dict, want: dict) -> str:
     return ""
 
 
+def ring_agents(agent_cls, inference_spec, agent_cost, vocab: int):
+    """``RING_RUN``'s seeded agents.  Lengths, budgets and arrivals come
+    from one generator and token values from another, so that the run's
+    shape, and so its record, does not depend on the vocabulary."""
+    import numpy as np
+
+    run = RING_RUN
+    rng = np.random.default_rng(run["seed"])
+    values = np.random.default_rng(run["seed"] + 1)
+    agents = []
+    for i in range(run["n_agents"]):
+        stage, specs = [], []
+        for _ in range(1 + int(rng.integers(0, 2))):
+            p = int(rng.integers(*run["p_range"]))
+            d = int(rng.integers(*run["d_range"]))
+            stage.append((values.integers(0, vocab, size=p), d))
+            specs.append(inference_spec(p, d))
+        agents.append(agent_cls(i, int(rng.integers(0, 2 * run["n_agents"])),
+                                [stage], agent_cost(specs)))
+    return agents
+
+
+def serve_ring(pkg, model, params, **engine_kw) -> tuple:
+    """Serve ``RING_RUN`` on ``pkg``'s ``ServeEngine`` (the port's, or the
+    JAX package's for the record).  Returns the run's record as JSON gives
+    it back (completions, clock, ``RING_COUNTERS``, every listener event
+    without token values), the engine, the event log and the agents."""
+    run = RING_RUN
+    events = EventLog()
+    eng = pkg["ServeEngine"](
+        model, params,
+        pkg["make_scheduler"]("justitia", float(run["pool_tokens"])),
+        pool_tokens=run["pool_tokens"], max_batch=run["max_batch"],
+        cache_len=run["cache_len"], listener=events, **engine_kw)
+    agents = ring_agents(pkg["EngineAgent"], pkg["InferenceSpec"],
+                         pkg["agent_cost"], model.cfg.vocab)
+    for a in agents:
+        eng.submit_agent(a)
+    eng.run_until_idle()
+    eng.alloc.check_invariants()
+    record = {
+        "completions": {str(a): t for a, t in sorted(eng.completions.items())},
+        "now": eng.now,
+        "counters": {k: eng.metrics[k] for k in RING_COUNTERS},
+        "events": events.rows,
+    }
+    # numpy scalars of the JAX engine as plain numbers
+    text = json.dumps(record, default=lambda o: o.item())
+    return json.loads(text), eng, events, agents
+
+
 def launcher_lines(out: str) -> dict:
     """The ``jct:`` and ``completions:`` lines of a launcher's output."""
     return {key: line for line in out.splitlines()
@@ -1118,14 +1382,15 @@ def launcher_lines(out: str) -> dict:
 
 
 def serve_full_width_api(torch, api, ops, model, params, record: dict,
-                         card: str) -> dict:
+                         card: str, runs=tuple(API_RUNS)) -> dict:
     """Phase 7a: the record's runs through ``AgentService`` on the
     full-width model; each must equal the JAX engine's record.  Paged
     decode must launch n_layers times a decode step (fused steps
     included) and flash n_layers times a batched prefill pass (each pass
     is one-shot here: every bucket fits ``prefill_chunk``, 512); a run
     with the prefix cache on must hit, one with fused prefill must run
-    slices.  Returns the launches summed over the runs."""
+    slices.  ``runs``: the names of the runs to serve.  Returns the
+    launches summed over the runs."""
     from repro_torch.engine import engine as engine_mod
 
     vocab = model.cfg.vocab
@@ -1140,7 +1405,8 @@ def serve_full_width_api(torch, api, ops, model, params, record: dict,
 
     engine_mod._prefill_write = counted_write
     try:
-        for name, run in API_RUNS.items():
+        for name in runs:
+            run = API_RUNS[name]
             gc.collect()
             torch.cuda.synchronize()
             passes.clear()
@@ -1327,6 +1593,160 @@ def bf16_logits_report(torch, pkg) -> None:
 
 
 
+# ------------------------------------------------------------------ phase 8
+
+
+def decode_ready_cache(torch, model, params, b: int = 8, s: int = 448):
+    """A cache of ``b`` slots after a prefill of ``s`` random tokens each,
+    with the next tokens and positions: the state phase 5 profiles a
+    decode step in."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, model.cfg.vocab, (b, s), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    _, cache = model.prefill(params, {"tokens": toks}, cache_len=512)
+    return cache, toks[:, -1:].clone(), torch.full(
+        (b,), s, dtype=torch.int32, device="cuda")
+
+
+def profile_moe_share(torch, model, params, busy_step: float,
+                      b: int = 8) -> None:
+    """The MoE layers' share of a decode step: the device time of one
+    ``moe_mlp`` call per layer at the decode step's shape (B ``b``, one
+    token each), from ``torch.profiler``, against ``busy_step``, the busy
+    time of a profiled decode step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.layers import moe_mlp
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h = torch.randn(b, 1, cfg.d_model, generator=gen, device="cuda").to(
+        params["embed"].dtype)
+    layers = model.layer_params(params)
+
+    def moe_layers():
+        for lp in layers:
+            moe_mlp(lp["moe"], h, top_k=cfg.top_k,
+                    capacity_factor=cfg.capacity_factor)
+
+    moe_layers()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    moe_layers()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        moe_layers()
+        torch.cuda.synchronize()
+    rows = _device_rows(prof, 1)
+    busy = sum(r[0] for r in rows)
+    log(f"  MoE layers of a decode step ({cfg.n_layers} moe_mlp calls at "
+        f"B {b}): wall {wall_ms:.2f} ms, device busy {busy:.0f} us in "
+        f"{sum(r[1] for r in rows)} kernels"
+        + (f", {busy / busy_step:.3f} of the decode step's busy time"
+           if busy_step else ""))
+    for dev, count, key in sorted(rows, reverse=True)[:5]:
+        log(f"    {dev:9.1f} us {count:6d} calls  {key[:70]}")
+
+
+def zoo_api(torch, api, ops, pkg, record: dict, card: str, arch: str) -> dict:
+    """Phase 8 (a, b): ``arch`` at full width (its depth cut where
+    ``ZOO_CUTS`` says), bf16, random weights, in ``ZOO_API_RUNS`` through
+    ``AgentService.engine``, each held to the JAX record with paged decode
+    at n_layers x decode steps and flash at n_layers x prefill passes; then
+    a profiled decode step at B 8 (and the MoE layers' share of it).
+    Returns the launches over the runs."""
+    cfg = pkg["get_config"](arch)
+    note = ""
+    if arch in ZOO_CUTS:
+        n_layers, why = ZOO_CUTS[arch]
+        note = f" (cut from {cfg.n_layers}: {why})"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model, params, _ = build_full_width(torch, pkg, cfg, note)
+    launches = serve_full_width_api(torch, api, ops, model, params, record,
+                                    card, runs=ZOO_API_RUNS)
+    cache, toks, pos = decode_ready_cache(torch, model, params)
+    busy = profile_decode(torch, model, params, cache, toks, pos)
+    if cfg.is_moe:
+        profile_moe_share(torch, model, params, busy)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def zoo_ring(torch, pkg, ops, record: dict, card: str) -> dict:
+    """Phase 8 (c): ``RING_RUN``, h2o-danube-1.8b at full width and its own
+    window of 4096 in a 6144-token cache (a 4096-row ring), bf16, held to
+    the JAX record; every decode step on the ring (paged decode launched
+    0 times), flash n_layers x prefill passes, every pass past the window.
+    Returns the launches."""
+    from repro_torch.engine import engine as engine_mod
+
+    cfg = pkg["get_config"](RING_RUN["arch"])
+    model, params, _ = build_full_width(torch, pkg, cfg)
+    seqs = []                       # S of each batched prefill pass
+    write = engine_mod._prefill_write
+
+    def counted_write(model_, cache_len, chunk, params_, cache, tokens,
+                      *args, **kw):
+        seqs.append(int(tokens.shape[1]))
+        return write(model_, cache_len, chunk, params_, cache, tokens,
+                     *args, **kw)
+
+    engine_mod._prefill_write = counted_write
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, eng, events, agents = serve_ring(pkg, model, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod._prefill_write = write
+    paged = ops.paged_gqa_decode.launches
+    flash = ops.flash_prefill.launches
+    m = got["counters"]
+    log(f"  ring run: cache {tuple(eng.cache['k'].shape)} (rows = window "
+        f"{cfg.sliding_window} < cache_len {RING_RUN['cache_len']}); "
+        f"counters {m}, clock {got['now']}; prefill passes at S {seqs}")
+    log(f"  ring run wall {wall:.3f} s, decode iterations/s "
+        f"{m['decode_steps'] / wall:.2f}, tokens/s {m['tokens'] / wall:.2f} "
+        f"(whole run, prefills included; {card}); launches: paged {paged} "
+        f"(0 on ring steps: {paged == 0}), flash {flash} (= "
+        f"{cfg.n_layers} x {len(seqs)} passes: "
+        f"{flash == cfg.n_layers * len(seqs)})")
+    want = record["ring"]
+    for key in ("completions", "now", "counters"):
+        if got[key] != want[key]:
+            raise AssertionError(f"ring run {key}: {got[key]} != the JAX "
+                                 f"record's {want[key]}")
+    for i, (a, b) in enumerate(zip(got["events"], want["events"])):
+        if a != b:
+            raise AssertionError(f"ring run event {i}: {a} != {b}")
+    if len(got["events"]) != len(want["events"]):
+        raise AssertionError(f"ring run: {len(got['events'])} events != "
+                             f"{len(want['events'])}")
+    log(f"  ring run: completions, clock, counters and {len(want['events'])}"
+        " events equal the JAX engine's record")
+    if eng.cache["k"].shape[2] != cfg.sliding_window:
+        raise AssertionError("the ring run's cache is not a ring")
+    if paged != 0:
+        raise AssertionError(f"paged decode launched {paged} times on ring "
+                             "decode steps")
+    if flash != cfg.n_layers * len(seqs) or min(seqs) <= cfg.sliding_window:
+        raise AssertionError(f"flash launched {flash} times for passes at "
+                             f"S {seqs}")
+    for a in agents:
+        budget = sum(d for stage in a.stages for _, d in stage)
+        toks = events.tokens.get(a.agent_id, [])
+        if len(toks) != budget or not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"ring run agent {a.agent_id}: "
+                                 f"{len(toks)} tokens of {budget}, or out "
+                                 "of range")
+    return {"paged_attention": paged, "flash_attention": flash}
+
+
 def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     """The before side of a comparison made in one chip call: times the
     kernels of another tree's port (an earlier commit unpacked beside this
@@ -1350,11 +1770,8 @@ def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     profile_granite_prefill(torch, model, params, 8, s)
     # a decode step of 8 slots after a prefill of s tokens, as phase 5
     # profiles one
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    toks = torch.randint(0, cfg.vocab, (8, s), generator=gen, device="cuda")
-    _, cache = model.prefill(params, {"tokens": toks}, cache_len=512)
-    profile_decode(torch, model, params, cache, toks[:, -1:].clone(),
-                   torch.full((8,), s, dtype=torch.int32, device="cuda"))
+    cache, toks, pos = decode_ready_cache(torch, model, params, 8, s)
+    profile_decode(torch, model, params, cache, toks, pos)
     del model, params, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -1407,7 +1824,8 @@ def main(argv: list) -> int:
     from repro_torch.kernels.paged_attention import split_plan
     from repro_torch.models.transformer import decode_page
 
-    log("== 1. device")
+    clock = PhaseClock()
+    clock.start("1. device")
     card = card_line()
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1416,7 +1834,7 @@ def main(argv: list) -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
         "TF32 off for float32 matmuls and convolutions")
 
-    log("== 2. build")
+    clock.start("2. build")
     t0 = time.perf_counter()
     load_floor = build_launch_floor(ops)
     ops.kernel_library()
@@ -1453,12 +1871,17 @@ def main(argv: list) -> int:
         f"(tensor_core), "
         f"{mlstm.grids(1, XLSTM['nh'], XLSTM['s'], hd, 'cuda_core')}")
 
-    log("== 3. kernels against their plain versions")
+    clock.start("3. kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    err = {"paged_attention": check_paged(ops, ref, torch, gen, split_plan,
-                                          decode_page),
-           "flash_attention": check_flash(ops, ref, torch, gen, flash_path),
-           "mlstm_chunk": check_mlstm(ops, ref, torch, gen, mlstm)}
+    # the max |d| of the line below: the larger of granite-3-2b's and
+    # llama2-7b's shapes in bfloat16
+    err = {name: max(errs["granite-3-2b"], errs["llama2-7b"])
+           for name, errs in (
+               ("paged_attention", check_paged(ops, ref, torch, gen,
+                                               split_plan, decode_page)),
+               ("flash_attention", check_flash(ops, ref, torch, gen,
+                                               flash_path)))}
+    err["mlstm_chunk"] = check_mlstm(ops, ref, torch, gen, mlstm)
     timing = {"paged_attention": time_paged(ops, ref, torch, gen),
               "flash_attention": time_flash(ops, ref, torch, gen),
               "mlstm_chunk": time_mlstm(ops, ref, torch, gen, floor=floor)}
@@ -1473,20 +1896,23 @@ def main(argv: list) -> int:
     for t_len in (100, 97):
         log_timing("paged_attention", time_paged(ops, ref, torch, own, t_len,
                                                  decode_page(t_len)))
+    for name, t in time_zoo(ops, ref, torch).items():
+        log_timing(name, t)
 
-    log("== 4. reduced engines, GPU (kernels) against CPU (plain)")
+    clock.start("4. reduced engines, GPU (kernels) against CPU (plain)")
     reduced_engine(torch, pkg, "granite-3-2b")
     reduced_engine(torch, pkg, "granite-3-2b", flags=True)
     reduced_engine(torch, pkg, "xlstm-350m", n_layers=4)
+    reduced_zoo(torch, pkg)
 
-    log("== 5. full-width granite-3-2b")
+    clock.start("5. full-width granite-3-2b")
     launches, granite, granite_params = full_width(torch, pkg, ops,
                                                    "granite-3-2b")
 
-    log("== 6. full-width xlstm-350m")
+    clock.start("6. full-width xlstm-350m")
     launches.update(full_width(torch, pkg, ops, "xlstm-350m")[0])
 
-    log("== 7. the serving API on the card")
+    clock.start("7. the serving API on the card")
     record = json.loads(API_RECORD.read_text())
     log(f"  (a) full-width {granite.cfg.name} ({granite.cfg.dtype}, phase "
         "5's parameters) through AgentService.engine, held to the JAX "
@@ -1501,6 +1927,23 @@ def main(argv: list) -> int:
     run_launchers(record)
     log("  (c) bf16 logits, card against CPU")
     bf16_logits_report(torch, pkg)
+
+    clock.start("8. the decoder-only zoo at full width")
+    log("  (a) llama2-7b through AgentService.engine")
+    zoo = [zoo_api(torch, api, ops, pkg, record, card, "llama2-7b")]
+    log("  (b) mixtral-8x7b through AgentService.engine")
+    zoo.append(zoo_api(torch, api, ops, pkg, record, card, "mixtral-8x7b"))
+    log("  (c) h2o-danube-1.8b over its 4096-row ring")
+    zoo.append(zoo_ring(torch, pkg, ops, record, card))
+    for arch in ("llama3.2-3b", "starcoder2-7b"):
+        log(f"  (d) {arch} through ServeEngine")
+        zoo.append(full_width(torch, pkg, ops, arch, profile=False)[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+    for counts in zoo:
+        for name, n in counts.items():
+            launches[name] += n
+    clock.start(None)
 
     sources = {
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_config(arch_id)`` + input shapes.
 
 A copy of the JAX package's registry (pure data), holding the archs the
-port serves so far.  Every entry cites its source in the module docstring.
+port serves so far, in the reference's order and under its ids.  Every
+entry cites its source in the module docstring.
 """
 
 from __future__ import annotations
@@ -12,8 +13,14 @@ import importlib
 from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 
 _MODULES = {
+    "llama3.2-3b": "llama3_2_3b",
     "granite-3-2b": "granite_3_2b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "dbrx-132b": "dbrx_132b",
     "xlstm-350m": "xlstm_350m",
+    "starcoder2-7b": "starcoder2_7b",
+    "llama2-7b": "llama2_7b_paper",
 }
 
 ALL_ARCHS = list(_MODULES)

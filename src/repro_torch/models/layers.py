@@ -4,8 +4,9 @@ attention (full / sliding-window / cached-decode), and the gated MLP.
 PyTorch counterparts of ``repro.models.layers`` with the same names,
 argument order and tensor layouts, so a parity test feeds both the same
 numpy arrays.  Parameters are plain dicts of tensors.  The JAX package's
-``shard()`` annotations have no counterpart on one GPU and are dropped;
-``moe_mlp`` arrives with the MoE slice.
+``shard()`` annotations have no counterpart on one GPU and are dropped.
+The GShard MoE (``init_moe``, ``moe_mlp``) is plain PyTorch, as the JAX
+package computes it in jnp outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -264,3 +265,91 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
 def gated_mlp(p, x):
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
     return h @ p["w2"]
+
+
+# ---------------------------------------------------------------------- moe
+
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+             dtype, device, lead: tuple = ()):
+    """The router (float32, as JAX keeps it) and the stacked expert
+    weights ``(*lead, E, ...)``.  Drawn one leading index at a time into
+    the stack, so that a float32 draw of a whole ``(L, E, d, f)`` stack
+    (twice its bfloat16 size) never exists."""
+
+    def normal(shape, scale, dt):
+        out = torch.empty((*lead, *shape), dtype=dt, device=device)
+        for part in out.view(-1, *shape):
+            part.copy_(torch.randn(shape, generator=gen, device=device)
+                       * scale)
+        return out
+
+    return {
+        "router": normal((d_model, n_experts), d_model ** -0.5,
+                         torch.float32),
+        "w1": normal((n_experts, d_model, d_ff), d_model ** -0.5, dtype),
+        "w3": normal((n_experts, d_model, d_ff), d_model ** -0.5, dtype),
+        "w2": normal((n_experts, d_ff, d_model), d_ff ** -0.5, dtype),
+    }
+
+
+def top_k_lower_index_first(x, k: int):
+    """``jax.lax.top_k`` along the last axis: the k largest values in
+    descending order, equal values lower index first (a stable descending
+    sort; ``torch.topk`` leaves the order of ties unspecified)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_mlp(p, x, *, top_k: int, capacity_factor: float = 1.25,
+            group_size: int = 1024):
+    """GShard-style capacity-based top-k MoE, grouped along the sequence;
+    returns ``(y, aux)``, aux the Switch load-balance loss term.
+
+    The rules of the JAX ``moe_mlp``: groups of the divisor-snapped size
+    ``g``, an expert buffer of ``max(1, int(g * top_k / E * cf))`` tokens,
+    router product and softmax in float32, the top-k gates renormalised
+    with a 1e-9 floor, each (token, k)'s place in its expert's buffer a
+    cumsum in token-major, k-minor order, and a token that does not fit
+    falling through the residual (its output from that expert is 0).
+    Padded tokens come after a row's real ones, so they never take a real
+    token's place.
+    """
+    b, s, d = x.shape
+    e = p["router"].shape[-1]
+    g = s // max(1, s // min(group_size, s))   # divisor-snapped group size
+    while s % g:
+        g += 1
+    ng = s // g
+    cap = max(1, int(g * top_k / e * capacity_factor))
+
+    xg = x.reshape(b, ng, g, d)
+    gate_logits = torch.einsum("bngd,de->bnge", xg.float(), p["router"])
+    probs = torch.softmax(gate_logits, dim=-1)               # (B,G,g,E)
+    gate_vals, gate_idx = top_k_lower_index_first(probs, top_k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # position of each (token, k) within its expert's capacity buffer
+    onehot = F.one_hot(gate_idx, e).float()                  # (B,G,g,K,E)
+    flat = onehot.reshape(b, ng, g * top_k, e)
+    pos_in_expert = torch.cumsum(flat, dim=2) * flat - 1.0
+    pos_in_expert = pos_in_expert.reshape(b, ng, g, top_k, e)
+    fits = (pos_in_expert >= 0) & (pos_in_expert < cap)
+    slot = F.one_hot(torch.clamp(pos_in_expert, 0, cap - 1).long(), cap)
+    kept = onehot * fits
+    disp = (slot.to(x.dtype) * kept[..., None].to(x.dtype)).sum(dim=3)
+    comb = (slot.float() * (kept * gate_vals[..., None])[..., None]
+            ).sum(dim=3).to(x.dtype)                         # (B,G,g,E,C)
+
+    xe = torch.einsum("bngd,bngec->bnecd", xg, disp)         # (B,G,E,C,D)
+    h = F.silu(torch.einsum("bnecd,edf->bnecf", xe, p["w1"])) * torch.einsum(
+        "bnecd,edf->bnecf", xe, p["w3"]
+    )
+    ye = torch.einsum("bnecf,efd->bnecd", h, p["w2"])
+    y = torch.einsum("bnecd,bngec->bngd", ye, comb).reshape(b, s, d)
+
+    frac_tokens = onehot.sum(3).mean(dim=(0, 1, 2))          # (E,)
+    frac_probs = probs.mean(dim=(0, 1, 2))                   # (E,)
+    aux = e * torch.sum(frac_tokens * frac_probs)
+    return y, aux

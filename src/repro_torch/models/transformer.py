@@ -25,7 +25,20 @@ Attention runs through the CUDA kernels where the JAX engine ran plain jnp:
 * chunked prefill (``dense_block_chunk``, queries at an offset) stays on the
   plain ``attention_any``: no Pallas kernel computes it.  So does
   ``prefill_slice`` (one slot's slice against the live cache, the engine's
-  fused prefill), as in JAX.
+  fused prefill), as in JAX;
+* decode over a ring cache (a sliding window smaller than the cache
+  length: ``T == window`` rows, decode position p at row ``p mod T``)
+  stays on the plain ``gqa_attention`` with ``kv_pos``, the window and
+  ``kv_valid``, as JAX computes it.  The ring's rows are not a
+  slot-contiguous run of positions (``_fill_kv`` keeps a long prompt's
+  last T tokens at rows 0..T-1, which a later wrap overwrites out of
+  order, as in JAX), so the paged kernel, which ignores ``kv_pos``, does
+  not compute it.
+
+The MoE family shares the dense blocks with a GShard MoE
+(``layers.moe_mlp``, plain PyTorch as in JAX) in place of the gated MLP;
+its chunked prefill is always one-shot (per-chunk capacities would drop
+other tokens), as the JAX package's ``prefill_chunked`` rules it.
 
 The ssm family (xLSTM) keeps the JAX layout too: ``params["xlstm_pairs"]``
 holds pair-stacked ``(n_pairs, ...)`` mLSTM/sLSTM leaves and the cache holds
@@ -34,9 +47,9 @@ the recurrent state ``mlstm_c/n/m`` and ``slstm_c/n/h/m``, each
 the ``mlstm_chunk`` kernel (``models/ssm.py``); decode is the plain per-step
 recurrence.
 
-The dense and ssm families are served: MoE, VLM, encoder-decoder, hybrid
-and ring (sliding-window smaller than the cache) layouts raise
-``NotImplementedError`` naming the slice that brings them.
+The dense, MoE and ssm families are served, ring caches included: VLM,
+encoder-decoder and hybrid raise ``NotImplementedError`` naming the slice
+that brings them.
 """
 
 from __future__ import annotations
@@ -56,8 +69,11 @@ from repro_torch.models.layers import (
     attention_out,
     attention_qkv,
     gated_mlp,
+    gqa_attention,
     init_attention,
     init_mlp,
+    init_moe,
+    moe_mlp,
     rms_norm,
 )
 
@@ -84,15 +100,13 @@ def _unsupported(what: str, later: str):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.kind == "moe" or cfg.is_moe:
-        raise _unsupported("the MoE family", "MoE")
     if cfg.kind == "vlm":
-        raise _unsupported("the VLM family", "VLM")
+        raise _unsupported("the VLM family", "other-families")
     if cfg.kind == "encdec":
         raise _unsupported("the encoder-decoder family", "other-families")
     if cfg.kind == "hybrid":
         raise _unsupported("the hybrid family", "other-families")
-    if cfg.kind not in ("dense", "ssm"):
+    if cfg.kind not in ("dense", "moe", "ssm"):
         raise ValueError(f"unknown kind {cfg.kind}")
 
 
@@ -140,6 +154,23 @@ def update_pos_masked(kv_pos, pos, s, lens):
                                  device=pos.device))
     kv_pos[torch.arange(b, device=pos.device)[:, None],
            _write_rows(pos, t, s)] = new
+    return kv_pos
+
+
+def ring_update_cache(cache_kv, new_kv, pos):
+    """SWA ring buffer: write one token at row ``pos % T`` (in place).
+    new_kv: (B,1,n,h)."""
+    b, t = cache_kv.shape[:2]
+    rows = torch.arange(b, device=pos.device)
+    cache_kv[rows, pos.long() % t] = new_kv[:, 0].to(cache_kv.dtype)
+    return cache_kv
+
+
+def ring_update_pos(kv_pos, pos):
+    """Record position ``pos`` at ring row ``pos % T`` (in place)."""
+    b, t = kv_pos.shape
+    rows = torch.arange(b, device=pos.device)
+    kv_pos[rows, pos.long() % t] = pos.to(kv_pos.dtype)
     return kv_pos
 
 
@@ -220,17 +251,34 @@ def _decode_attention(q, k_cache, v_cache, pos, pages=None):
 
 
 def init_dense_blocks(gen: torch.Generator, cfg: ModelConfig, dtype, device):
-    """The layer-stacked block parameters (JAX: ``vmap(init_dense_block)``)."""
+    """The layer-stacked block parameters (JAX: ``vmap(init_dense_block)``):
+    a ``moe`` leaf (router and ``(L, E, ...)`` experts) where the config
+    has experts, else ``mlp``."""
     lead = (cfg.n_layers,)
     dims = AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     ones = torch.ones((*lead, cfg.d_model), dtype=torch.float32,
                       device=device)
-    return {
+    p = {
         "ln1": ones,
         "attn": init_attention(gen, cfg.d_model, dims, dtype, device, lead),
         "ln2": ones.clone(),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device, lead),
     }
+    if cfg.is_moe:
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, dtype,
+                            device, lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device, lead)
+    return p
+
+
+def block_ffn(p, x, cfg: ModelConfig):
+    """The block's feed-forward: the MoE where the config has experts (its
+    capacities over this call's whole S), else the gated MLP.  Returns
+    ``(y, aux)``."""
+    if cfg.is_moe:
+        return moe_mlp(p["moe"], x, top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor)
+    return gated_mlp(p["mlp"], x), 0.0
 
 
 def dense_block_train(p, x, positions, cfg: ModelConfig, attn_mask_lens=None):
@@ -247,7 +295,8 @@ def dense_block_train(p, x, positions, cfg: ModelConfig, attn_mask_lens=None):
     att = _prefill_attention(q, k, v, cfg.sliding_window)
     x = x + attention_out(p["attn"], att)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + gated_mlp(p["mlp"], h2), (k, v, 0.0)
+    y, aux = block_ffn(p, h2, cfg)
+    return x + y, (k, v, aux)
 
 
 def dense_block_chunk(p, x, pos, positions, lens, k_cache, v_cache, kv_pos,
@@ -271,26 +320,38 @@ def dense_block_chunk(p, x, pos, positions, lens, k_cache, v_cache, kv_pos,
     )
     x = x + attention_out(p["attn"], att)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + gated_mlp(p["mlp"], h2), k_cache, v_cache, kv_pos
+    return x + block_ffn(p, h2, cfg)[0], k_cache, v_cache, kv_pos
 
 
 def dense_block_decode(p, x, pos, k_cache, v_cache, kv_pos, cfg: ModelConfig,
                        ring: bool, pages=None):
-    """One-token decode step against a full KV cache (updated in place).
-    ``pages``: the step's ``slot_pages``, built here when not given."""
-    if ring:
-        raise _unsupported("the ring (sliding-window) cache", "ring-cache")
+    """One-token decode step against a (possibly ring) KV cache, updated in
+    place.  A full cache decodes through the paged kernel (``pages``: the
+    step's ``slot_pages``, built here when not given), a ring through the
+    plain masked attention."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = attention_qkv(
         p["attn"], h, pos[:, None], cfg.rope_theta, cfg.use_rope
     )
-    update_cache(k_cache, k_new, pos)
-    update_cache(v_cache, v_new, pos)
-    update_pos(kv_pos, pos, 1)
-    att = _decode_attention(q, k_cache, v_cache, pos, pages)
+    if ring:
+        ring_update_cache(k_cache, k_new, pos)
+        ring_update_cache(v_cache, v_new, pos)
+        ring_update_pos(kv_pos, pos)
+        att = gqa_attention(
+            q, k_cache, v_cache,
+            window=cfg.sliding_window,
+            q_positions=pos[:, None],
+            kv_positions=kv_pos,
+            kv_valid=kv_pos >= 0,
+        )
+    else:
+        update_cache(k_cache, k_new, pos)
+        update_cache(v_cache, v_new, pos)
+        update_pos(kv_pos, pos, 1)
+        att = _decode_attention(q, k_cache, v_cache, pos, pages)
     x = x + attention_out(p["attn"], att)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + gated_mlp(p["mlp"], h2), k_cache, v_cache, kv_pos
+    return x + block_ffn(p, h2, cfg)[0], k_cache, v_cache, kv_pos
 
 
 # ===========================================================================
@@ -342,11 +403,11 @@ def _gather_last(x, lens):
 
 
 class Model:
-    """Serving entry points of the dense and ssm families on one device.
+    """Serving entry points of the dense, MoE and ssm families on one device.
 
     ``device=None`` means ``cuda`` and raises when there is none; tests pass
     ``device="cpu"``.  ``debug_checks=True`` asserts the slot-contiguity
-    precondition of paged decode after every dense decode step.
+    precondition of paged decode after every decode step on a full cache.
     """
 
     def __init__(self, cfg: ModelConfig,
@@ -567,7 +628,8 @@ class Model:
         Returns ``(logits (V,), cache)``, the logits at the prompt's final
         position clipped into this slice: the first-token distribution
         when this slice completes the prompt, garbage otherwise.  Dense
-        family only; ring layouts are gated out by the engine.
+        and MoE families (the MoE's capacities over the slice's S tokens,
+        as in JAX); ring layouts are gated out by the engine.
         """
         cfg = self.cfg
         if cfg.kind not in ("dense", "moe", "vlm"):
@@ -603,26 +665,41 @@ class Model:
             )
             x = x + attention_out(lp["attn"], att)
             h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + gated_mlp(lp["mlp"], h2)
+            x = x + block_ffn(lp, h2, cfg)[0]
         last = min(max(total - 1 - start, 0), s - 1)
         logits = self._logits(params, x[:, last][:, None, :])
         return logits[0, 0], cache
 
     def _fill_kv(self, cache, ks, vs, lens, s):
-        """Copy prefill K/V (per layer (B,S,n,h)) into the cache's first S
-        slots; kv_pos = arange(S) masked to -1 past each row's length."""
+        """Copy prefill K/V (per layer (B,S,n,h)) into the fresh cache's
+        first S rows, kv_pos = arange(S); or, where a ring (sliding-window)
+        cache of T < S rows, the prompt's last T tokens into rows 0..T-1,
+        kv_pos = arange(S-T, S).  Either way kv_pos is -1 at and past each
+        row's length.
+
+        The ring branch is the JAX package's, quirks included: row j holds
+        position S-T+j although decode writes position p at row p mod T
+        (so a later wrap can overwrite a row still inside the window), and
+        a row shorter than the batch's S loses its head rows, even when
+        its own prompt fits in the window."""
         t = cache["k"].shape[2]
-        if s > t:
-            raise _unsupported("a prompt longer than the (ring) cache",
-                               "ring-cache")
+        dev = lens.device
+        if self.cfg.sliding_window and t < s:
+            rows, kvp = slice(None), torch.arange(s - t, s, dtype=torch.int32,
+                                                  device=dev)
+            ks, vs = [k[:, -t:] for k in ks], [v[:, -t:] for v in vs]
+        elif s <= t:
+            rows, kvp = slice(0, s), torch.arange(s, dtype=torch.int32,
+                                                  device=dev)
+        else:
+            raise ValueError(f"a prompt of {s} tokens does not fit a cache "
+                             f"of {t} rows")
         for l, (k, v) in enumerate(zip(ks, vs)):
-            cache["k"][l, :, :s] = k
-            cache["v"][l, :, :s] = v
-        kvp = torch.arange(s, dtype=torch.int32, device=lens.device)[None]
-        kvp = torch.where(kvp < lens[:, None], kvp,
-                          torch.full((), -1, dtype=torch.int32,
-                                     device=lens.device))
-        cache["kv_pos"][:, :, :s] = kvp
+            cache["k"][l, :, rows] = k
+            cache["v"][l, :, rows] = v
+        kvp = torch.where(kvp[None] < lens[:, None], kvp[None],
+                          torch.full((), -1, dtype=torch.int32, device=dev))
+        cache["kv_pos"][:, :, rows] = kvp
         return cache
 
     def decode(self, params, cache: dict, tokens, pos):
@@ -639,10 +716,13 @@ class Model:
                 for dst, st in zip(old, states):
                     dst.copy_(st)
             return self._logits(params, x), cache
+        # JAX's rule, which reads a cache of exactly ``window`` rows as a
+        # ring even where the engine's (``window < cache_len``) does not:
+        # below the window both write position p at row p
         ring = bool(cfg.sliding_window) and (
             cache["k"].shape[2] == cfg.sliding_window
         )
-        # one page table for every layer of the step
+        # one page table for every layer of a step on a full cache
         b, t = cache["k"].shape[1:3]
         pages = None if ring else slot_pages(b, t, pos)
         for l, lp in enumerate(self.layer_params(params)):
@@ -650,6 +730,6 @@ class Model:
                 lp, x, pos, cache["k"][l], cache["v"][l],
                 cache["kv_pos"][l], cfg, ring, pages,
             )
-        if self.debug_checks:
+        if self.debug_checks and not ring:
             check_slot_contiguous(cache["kv_pos"], pos)
         return self._logits(params, x), cache
