@@ -39,7 +39,11 @@ Phases, each of which fails the run (exit code 1) on error:
    hd 80, mixtral-8x7b's window, at B 8 and 512 tokens) and flash at
    h2o-danube's windowed prefill past the window (``H2O_PREFILL``), all
    within ``TOL``, and the kernel, plain, SDPA and bound at llama2-7b's
-   decode and prefill and at that windowed prefill;
+   decode and prefill and at that windowed prefill; then both at the last
+   three families' full-width shapes (``FAMILY_SHAPES``: llava-next-34b's
+   qpk 7 at hd 128, B 2 x S 3,136, zamba2-2.7b's MHA at hd 80, B 4 x S
+   1,024, whisper-tiny's 6/6 at hd 64), within ``TOL``, with kernel, plain,
+   SDPA and bound at each;
 4. reduced engines: reduced granite-3-2b and reduced xlstm-350m at float32
    served on the GPU (the kernels) and on the CPU (the plain versions)
    under three schedulers with a pool small enough to force swaps;
@@ -53,7 +57,12 @@ Phases, each of which fails the run (exit code 1) on error:
    (``reduced_zoo``): reduced mixtral-8x7b over its ring, and with its
    full-width window over a full cache with fused prefill off and on,
    and reduced h2o-danube-1.8b at ``cache_len`` 160 for prompts longer
-   than its window of 64, every sampled token equal;
+   than its window of 64, every sampled token equal; then reduced
+   llava-next-34b's engine under the three schedulers as granite's, and
+   the last three families (``reduced_families``: llava with image
+   embeddings, zamba2, whisper with frames, ragged lens) through
+   ``Model.prefill`` and 16 greedy ``Model.decode`` steps, every token
+   equal and the logits within 1e-4;
 5. full width, granite-3-2b at bfloat16 (40 layers, d_model 2048, random
    weights from a seed) served by ``ServeEngine`` (max_batch 8, cache_len
    512, pool 4096 tokens, justitia) for seeded agents; every agent
@@ -82,8 +91,9 @@ Phases, each of which fails the run (exit code 1) on error:
    prefill must run slices, every token must be in range; then one fused
    step at the serving shape is timed and profiled beside a decode step
    and its slice alone; (b) ``python -m repro_torch.launch.serve
-   --backend engine`` at both archs, as users start it (on the card), whose ``jct:`` and
-   ``completions:`` lines must equal the JAX launcher's; (c) one prefill
+   --backend engine`` at each of ``LAUNCHER_ARCHS``, as users start it (on
+   the card), whose ``jct:`` and ``completions:`` lines must equal the JAX
+   launcher's; (c) one prefill
    and one decode step of reduced granite-3-2b at bfloat16 on the card
    against the CPU, logged: the logits' max |d| and the argmax agreement;
 8. the decoder-only zoo at full width, bf16, random weights from a seed,
@@ -97,13 +107,29 @@ Phases, each of which fails the run (exit code 1) on error:
    ring, held to the JAX engine's record of the same lengths, paged decode
    launched 0 times and flash n_layers x prefill passes, each past the
    window; (d) llama3.2-3b and starcoder2-7b (all layers) serving phase
-   5's agents, every budget complete.
+   5's agents, every budget complete;
+9. the last three families at full width, bf16, random weights from a
+   seed, each model freed before the next: (a) llava-next-34b (60 layers,
+   d_model 7168, 56/8 heads) in the ``open`` and ``fused`` runs held to the
+   JAX record as in phase 8 (the engine passes token prompts, as the JAX
+   engine does), then ``Model.prefill`` of B 2 x (2,880 seeded image
+   embeddings + 256 text tokens) at ``cache_len`` 4,096 and 32 greedy
+   decode steps (flash n_layers times, paged n_layers x 32), a profiled
+   decode step and the peak memory; (b) zamba2-2.7b (9 super blocks of 6
+   Mamba2 layers, one shared attention block) through ``Model``: prefill
+   of B 4 x 1,024 tokens and 64 greedy steps (flash 9 times, paged 9 x
+   64), a prefill split into Mamba2 and attention, a profiled decode step;
+   (c) whisper-tiny (4 + 4 layers, 1,500 frames): B 4 x 1,500 seeded
+   frames and a 32-token prompt, 64 greedy steps, at float32 on the card
+   and on the CPU (every token equal), then at bf16 on the card (flash 4
+   times and paged 4 x 64 in each card run).  The engine does not serve
+   the hybrid and the encoder-decoder, as the JAX engine cannot.
 
-Each full-width phase and each phase-7 and phase-8 run zeroes the launch
+Each full-width phase and each phase-7, phase-8 and phase-9 run zeroes the launch
 counts just before it serves and reads them just after; each phase's wall
 time is logged when the next starts.  The last lines are the card's name and power
 limit, one ``{"kernels": ...}`` JSON line (launches summed over phases 5,
-6 and 8; max |d| the larger of the granite and llama2-7b shapes' in
+6, 8 and 9; max |d| the larger of the granite and llama2-7b shapes' in
 bfloat16) and, last, ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -196,9 +222,11 @@ API_COUNTERS = ("tokens", "prefills", "swaps", "decode_steps",
                 "suspensions", "resumes", "suspend_spills", "prefix_hits",
                 "prefill_tokens_saved", "fused_slices")
 #: the launcher runs of the record: ``--backend engine`` at each arch
-#: (the paper's llama2-7b, and mixtral-8x7b: the MoE over a ring cache at
-#: the launcher's reduced width, window 64 in 512 tokens)
-LAUNCHER_ARCHS = ("granite-3-2b", "xlstm-350m", "llama2-7b", "mixtral-8x7b")
+#: (the paper's llama2-7b, mixtral-8x7b: the MoE over a ring cache at the
+#: launcher's reduced width, window 64 in 512 tokens, and llava-next-34b:
+#: the VLM's token prompts)
+LAUNCHER_ARCHS = ("granite-3-2b", "xlstm-350m", "llama2-7b", "mixtral-8x7b",
+                  "llava-next-34b")
 LAUNCHER_TIMEOUT_S = 300
 #: phase 8's ring run: h2o-danube-1.8b at its own window of 4096 in a
 #: 6144-token cache (a 4096-row ring) under justitia, for seeded agents of
@@ -212,9 +240,37 @@ RING_RUN = dict(arch="h2o-danube-1.8b", seed=2028, n_agents=4,
 RING_COUNTERS = ("tokens", "prefills", "swaps", "decode_steps")
 #: phase 8's runs of ``API_RUNS`` at llama2-7b and mixtral-8x7b
 ZOO_API_RUNS = ("open", "fused")
-#: phase 8's depth cuts: arch -> (layers served, why)
+#: phase 8's and phase 9's depth cuts: arch -> (layers served, why)
 ZOO_CUTS = {"mixtral-8x7b": (16, "32 layers are 93 GB at bf16, more than "
                                  "the card's 80 GB")}
+#: the last three families at full width: name -> (B, q heads, kv heads,
+#: head dim, prefill S, decode cache rows), the shapes phase 9 gives the
+#: kernels (phase 3 checks and times them there)
+FAMILY_SHAPES = {
+    # qpk 7; 2,880 anyres image embeddings + 256 text tokens
+    "llava-next-34b": (2, 56, 8, 128, 3136, 4096),
+    # MHA at hd 80 (flash's CUDA-core kernel); 1,024 tokens + 64 steps
+    "zamba2-2.7b": (4, 32, 32, 80, 1024, 1152),
+    # MHA; a 32-token decoder prompt, padded to flash's 64-token block
+    "whisper-tiny": (4, 6, 6, 64, 64, 128),
+}
+#: phase 9's runs: llava-next-34b's image prefill (text tokens after the
+#: config's 2,880 image embeddings), zamba2-2.7b's and whisper-tiny's
+#: prompts; each then decodes ``steps`` greedy tokens
+FAMILY_RUNS = {
+    "llava-next-34b": dict(text=256, steps=32),
+    "zamba2-2.7b": dict(s=1024, steps=64),
+    "whisper-tiny": dict(s=32, steps=64),
+}
+#: phase 4's reduced families (f32, card against CPU): arch -> the
+#: overrides that keep its q-per-kv ratio (zamba2: two super blocks)
+REDUCED_FAMILIES = {
+    "llava-next-34b": dict(n_heads=7, n_kv_heads=1),
+    "zamba2-2.7b": dict(n_heads=4, n_kv_heads=4, n_layers=4),
+    "whisper-tiny": dict(n_heads=4, n_kv_heads=4),
+}
+#: logits of phase 4's reduced families, card against CPU, at float32
+FAMILY_LOGIT_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -325,6 +381,10 @@ def check_paged(ops, ref, torch, gen, split_plan, decode_page) -> dict:
     zoo = torch.Generator(device="cuda").manual_seed(200)
     for arch, (nh, n_kv, hd, _) in ZOO_SHAPES.items():
         cases.append((zoo, arch, 8, nh, n_kv, hd, 16, 8 * 32, 32, None))
+    fam = torch.Generator(device="cuda").manual_seed(203)
+    for arch, (b, nh, n_kv, hd, _, t) in FAMILY_SHAPES.items():
+        cases.append((fam, arch, b, nh, n_kv, hd, 16, b * t // 16, t // 16,
+                      None))
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for gen_case, label, b, nh, n_kv, hd, bs, n_pages, mp, lengths in \
@@ -389,6 +449,9 @@ def check_flash(ops, ref, torch, gen, flash_path) -> dict:
     nh, n_kv, hd, _ = ZOO_SHAPES["h2o-danube-1.8b"]
     cases.append((zoo, "h2o-danube-1.8b past the window", h["b"], h["s"], nh,
                   n_kv, hd, h["window"]))
+    fam = torch.Generator(device="cuda").manual_seed(204)
+    for arch, (b, nh, n_kv, hd, s, _) in FAMILY_SHAPES.items():
+        cases.append((fam, arch, b, s, nh, n_kv, hd, 0))
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for gen_case, label, b, s, nh, n_kv, hd, window in cases:
@@ -536,6 +599,24 @@ def time_zoo(ops, ref, torch) -> dict:
     out["flash h2o-danube-1.8b"] = time_flash(
         ops, ref, torch, gen, shape=(h["b"], h["s"], nh, n_kv, hd,
                                      h["window"]), n_sets=2)
+    return out
+
+
+def time_families(ops, ref, torch) -> dict:
+    """Kernel, plain version, SDPA and bound at the last three families'
+    full-width shapes (``FAMILY_SHAPES``): paged decode over B slots full
+    to the prefill's S tokens, and flash prefill at B x S, bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(205)
+    out = {}
+    for arch, (b, nh, n_kv, hd, s, _) in FAMILY_SHAPES.items():
+        # enough input sets to keep L2 cold: at least 200 MB of K/V
+        kv_mb = 2 * b * s * n_kv * hd * 2 / 1e6
+        n_sets = max(2, min(16, int(200 / kv_mb) + 1))
+        out[f"paged {arch}"] = time_paged(ops, ref, torch, gen, t_len=s,
+                                          shape=(b, nh, n_kv, hd, n_sets))
+        out[f"flash {arch}"] = time_flash(ops, ref, torch, gen,
+                                          shape=(b, s, nh, n_kv, hd, 0),
+                                          n_sets=min(n_sets, 8))
     return out
 
 
@@ -897,6 +978,77 @@ def reduced_zoo(torch, pkg) -> None:
                                      f"tokens differ, match {match}")
             if kw.get("fused_prefill") and not g["fused_slices"]:
                 raise AssertionError(f"{cfg.name}: no fused slice ran")
+
+
+def family_batch(torch, cfg, b: int, s: int, lens, device, seed: int):
+    """A seeded batch for ``cfg``'s family: ``b`` rows of ``s`` tokens with
+    ``lens``, and llava's image embeddings (the config's ``n_image_tokens``)
+    or whisper's frames (``n_audio_frames``) at the text embeddings' scale;
+    made on the CPU, then moved to ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     dtype=torch.int32),
+             "lens": torch.tensor(lens, dtype=torch.int32)}
+    n = {"vlm": cfg.n_image_tokens, "encdec": cfg.n_audio_frames}.get(
+        cfg.kind)
+    if n:
+        batch["embeds"] = torch.randn((b, n, cfg.d_model), generator=gen) * 0.02
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def greedy(torch, model, params, batch, cache_len: int, steps: int,
+           walls=None):
+    """``Model.prefill`` of ``batch``, then ``steps`` greedy
+    ``Model.decode`` steps from its argmax (positions after each row's
+    prompt, image rows included).  Returns the tokens (B, steps + 1), the
+    logits of every call, the cache and the next (tokens, positions).
+    ``walls``: a dict that gets the prefill's wall (ended by a
+    synchronize) under ``"prefill"``."""
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, cache_len=cache_len)
+    if walls is not None:
+        torch.cuda.synchronize()
+        walls["prefill"] = time.perf_counter() - t0
+    pos = batch["lens"].clone()
+    if model.cfg.kind == "vlm" and "embeds" in batch:
+        pos += batch["embeds"].shape[1]
+    out = [logits]
+    nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+    toks = [nxt]
+    for _ in range(steps):
+        logits, cache = model.decode(params, cache, nxt, pos)
+        out.append(logits)
+        nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+        toks.append(nxt)
+        pos = pos + 1
+    return torch.cat(toks, dim=1), out, cache, (nxt, pos)
+
+
+def reduced_families(torch, pkg) -> None:
+    """Phase 4's last three families at float32, reduced
+    (``REDUCED_FAMILIES``): ``Model.prefill`` of a ragged batch (llava with
+    its image embeddings, whisper with its frames), then 16 greedy decode
+    steps, on the card (kernels, ``debug_checks``) and on the CPU (plain
+    versions) from the same parameters: every greedy token equal and every
+    call's logits within ``FAMILY_LOGIT_TOL``."""
+    for arch, over in REDUCED_FAMILIES.items():
+        cfg = pkg["get_config"](arch).reduced(**over)
+        cpu = pkg["Model"](cfg, device="cpu")
+        params = cpu.init(seed=0)
+        gpu = pkg["Model"](cfg, device="cuda", debug_checks=True)
+        runs = [greedy(torch, model, p, family_batch(
+                    torch, cfg, 2, 48, [48, 29], dev, seed=6), 128, 16)
+                for model, p, dev in ((gpu, to_device(params, "cuda"), "cuda"),
+                                      (cpu, params, "cpu"))]
+        (tg, lg, _, _), (tc, lc, _, _) = runs
+        err = max(float((g.float().cpu() - c.float()).abs().max())
+                  for g, c in zip(lg, lc))
+        equal = bool((tg.cpu() == tc).all())
+        log(f"  {cfg.name} ({cfg.kind}) prefill + 16 decode steps, card "
+            f"against CPU: tokens equal {equal}, logits max |d| {err:.3g}")
+        if not equal or not err <= FAMILY_LOGIT_TOL:
+            raise AssertionError(f"{cfg.name}: card and CPU differ (tokens "
+                                 f"equal {equal}, logits max |d| {err})")
 
 
 def build_full_width(torch, pkg, cfg, note: str = ""):
@@ -1650,6 +1802,17 @@ def profile_moe_share(torch, model, params, busy_step: float,
         log(f"    {dev:9.1f} us {count:6d} calls  {key[:70]}")
 
 
+def cut_cfg(pkg, arch: str):
+    """``arch``'s full-width config, its depth cut where ``ZOO_CUTS`` says,
+    and the note that says so."""
+    cfg = pkg["get_config"](arch)
+    if arch not in ZOO_CUTS:
+        return cfg, ""
+    n_layers, why = ZOO_CUTS[arch]
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            f" (cut from {cfg.n_layers}: {why})")
+
+
 def zoo_api(torch, api, ops, pkg, record: dict, card: str, arch: str) -> dict:
     """Phase 8 (a, b): ``arch`` at full width (its depth cut where
     ``ZOO_CUTS`` says), bf16, random weights, in ``ZOO_API_RUNS`` through
@@ -1657,12 +1820,7 @@ def zoo_api(torch, api, ops, pkg, record: dict, card: str, arch: str) -> dict:
     at n_layers x decode steps and flash at n_layers x prefill passes; then
     a profiled decode step at B 8 (and the MoE layers' share of it).
     Returns the launches over the runs."""
-    cfg = pkg["get_config"](arch)
-    note = ""
-    if arch in ZOO_CUTS:
-        n_layers, why = ZOO_CUTS[arch]
-        note = f" (cut from {cfg.n_layers}: {why})"
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg, note = cut_cfg(pkg, arch)
     model, params, _ = build_full_width(torch, pkg, cfg, note)
     launches = serve_full_width_api(torch, api, ops, model, params, record,
                                     card, runs=ZOO_API_RUNS)
@@ -1745,6 +1903,224 @@ def zoo_ring(torch, pkg, ops, record: dict, card: str) -> dict:
                                  f"{len(toks)} tokens of {budget}, or out "
                                  "of range")
     return {"paged_attention": paged, "flash_attention": flash}
+
+
+# ------------------------------------------------------------------ phase 9
+
+
+def n_attention(cfg) -> int:
+    """Attention layers a prefill or decode step runs: the hybrid's shared
+    block once per super block, else one per layer."""
+    return (cfg.n_layers // cfg.attn_every if cfg.kind == "hybrid"
+            else cfg.n_layers)
+
+
+def run_family(torch, ops, model, params, batch, cache_len: int, steps: int,
+               card: str, label: str):
+    """Phase 9's main path on one model: ``greedy`` over ``batch``, with
+    the launch counts zeroed just before and read just after.  Flash must
+    launch once per attention layer and paged decode once per attention
+    layer and step; every token in range, the last logits finite.  Logs
+    the walls (each ended by a synchronize).  Returns the launches, the
+    tokens and the cache with the next (tokens, positions)."""
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    walls = {}
+    t0 = time.perf_counter()
+    toks, logits, cache, nxt = greedy(torch, model, params, batch, cache_len,
+                                      steps, walls)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decode = wall - walls["prefill"]
+    launches = {"paged_attention": ops.paged_gqa_decode.launches,
+                "flash_attention": ops.flash_prefill.launches}
+    n = n_attention(cfg)
+    b, s = batch["tokens"].shape
+    extra = (f"{batch['embeds'].shape[1]} "
+             f"{'frames' if cfg.kind == 'encdec' else 'image embeddings'} + "
+             if "embeds" in batch else "")
+    log(f"  {label}: B {b} x ({extra}"
+        f"{s} tokens), cache {cache_len}: prefill {walls['prefill']:.3f} s, "
+        f"{steps} greedy decode steps {decode:.3f} s ({steps / decode:.2f} "
+        f"steps/s; {card}); launches {launches} (flash = {n} attention "
+        f"layers: {launches['flash_attention'] == n}; paged = {n} x {steps} "
+        f"steps: {launches['paged_attention'] == n * steps})")
+    if launches != {"paged_attention": n * steps, "flash_attention": n}:
+        raise AssertionError(f"{label}: launches {launches}, not flash {n} "
+                             f"and paged {n * steps}")
+    last = logits[-1]
+    if last.shape != (b, 1, cfg.vocab) or not bool(
+            torch.isfinite(last.float()).all()):
+        raise AssertionError(f"{label}: logits not finite or of shape "
+                             f"{tuple(last.shape)}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{label}: token id out of range")
+    return launches, toks, cache, nxt
+
+
+def free_model(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_llava(torch, api, ops, pkg, record: dict, card: str) -> dict:
+    """Phase 9 (a): llava-next-34b at full width (its depth cut where
+    ``ZOO_CUTS`` says), bf16, random weights: the ``ZOO_API_RUNS`` through
+    ``AgentService.engine`` held to the JAX record (token prompts, as the
+    engine serves a VLM), then ``Model.prefill`` of B 2 x (2,880 seeded
+    image embeddings + 256 text tokens) at ``cache_len`` 4,096 and 32
+    greedy decode steps, and a profiled decode step.  Returns the
+    launches."""
+    cfg, note = cut_cfg(pkg, "llava-next-34b")
+    b, _, _, _, s, cache_len = FAMILY_SHAPES["llava-next-34b"]
+    run = FAMILY_RUNS["llava-next-34b"]
+    model, params, held = build_full_width(torch, pkg, cfg, note)
+    launches = serve_full_width_api(torch, api, ops, model, params, record,
+                                    card, runs=ZOO_API_RUNS)
+    free_model(torch)
+    torch.cuda.reset_peak_memory_stats()
+    batch = family_batch(torch, cfg, b, run["text"], [run["text"]] * b,
+                         "cuda", seed=7)
+    assert batch["embeds"].shape[1] + run["text"] == s
+    got, _, cache, (nxt, pos) = run_family(
+        torch, ops, model, params, batch, cache_len, run["steps"], card,
+        "image prefill")
+    for name, n in got.items():
+        launches[name] += n
+    profile_decode(torch, model, params, cache, nxt, pos)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        f" ({(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB of "
+        "it this phase's)")
+    del model, params, cache
+    free_model(torch)
+    return launches
+
+
+def profile_hybrid_prefill(torch, model, params, batch, cache_len: int):
+    """Where zamba2's prefill goes: the host wall of its Mamba2 calls and of
+    its shared attention blocks, each call bracketed by synchronizes, then,
+    from ``torch.profiler``, all device time against the flash kernel's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm, transformer
+
+    orig = {"mamba2": ssm.mamba2_forward_chunked,
+            "shared": transformer.dense_block_train}
+    wall = dict.fromkeys(orig, 0.0)
+
+    def timed(key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[key](*args, **kw)
+            torch.cuda.synchronize()
+            wall[key] += time.perf_counter() - t
+            return out
+        return run
+
+    ssm.mamba2_forward_chunked = timed("mamba2")
+    transformer.dense_block_train = timed("shared")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, batch, cache_len=cache_len)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        ssm.mamba2_forward_chunked = orig["mamba2"]
+        transformer.dense_block_train = orig["shared"]
+    log(f"  prefill wall {total * 1e3:.1f} ms: Mamba2 calls "
+        f"{wall['mamba2'] * 1e3:.1f} ms ({wall['mamba2'] / total:.3f}), "
+        f"shared attention blocks {wall['shared'] * 1e3:.1f} ms "
+        f"({wall['shared'] / total:.3f}), the rest "
+        f"{(total - wall['mamba2'] - wall['shared']) * 1e3:.1f} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill(params, batch, cache_len=cache_len)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof, 1)
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        log("  profile: the profiler recorded no device time (not measured)")
+        return
+    flash = sum(r[0] for r in rows if "flash" in r[2])
+    log(f"  profile: prefill device busy {busy:.0f} us in "
+        f"{sum(r[1] for r in rows)} kernels; flash kernel {flash:.0f} us "
+        f"({flash / busy:.3f})")
+    for dev, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"    {dev:9.1f} us {count:6d} calls  {key[:70]}")
+
+
+def family_zamba2(torch, ops, pkg, card: str) -> dict:
+    """Phase 9 (b): zamba2-2.7b at full width (9 super blocks of 6 Mamba2
+    layers and the shared attention block), bf16, random weights:
+    ``Model.prefill`` of B 4 x 1,024 tokens and 64 greedy decode steps,
+    then a profiled prefill (Mamba2 against attention) and decode step.
+    Returns the launches."""
+    cfg, note = cut_cfg(pkg, "zamba2-2.7b")
+    b, _, _, _, s, cache_len = FAMILY_SHAPES["zamba2-2.7b"]
+    run = FAMILY_RUNS["zamba2-2.7b"]
+    model, params, held = build_full_width(
+        torch, pkg, cfg, f" ({cfg.n_layers // cfg.attn_every} x "
+        f"{cfg.attn_every} Mamba2, ssm_state {cfg.ssm_state}, one shared "
+        f"attention block){note}")
+    torch.cuda.reset_peak_memory_stats()
+    batch = family_batch(torch, cfg, b, s, [s] * b, "cuda", seed=8)
+    launches, _, cache, (nxt, pos) = run_family(
+        torch, ops, model, params, batch, cache_len, run["steps"], card,
+        "prefill and decode")
+    log(f"  peak memory {(torch.cuda.max_memory_allocated() - held) / 2**30:.2f}"
+        " GiB")
+    profile_hybrid_prefill(torch, model, params, batch, cache_len)
+    profile_decode(torch, model, params, cache, nxt, pos)
+    del model, params, cache
+    free_model(torch)
+    return launches
+
+
+def family_whisper(torch, ops, pkg, card: str) -> dict:
+    """Phase 9 (c): whisper-tiny at full width (4 + 4 layers, d_model 384,
+    1,500 frames): B 4 x 1,500 seeded frames and a 32-token decoder prompt,
+    then 64 greedy steps, at float32 on the card and on the CPU from the
+    same parameters (every token equal), then at bf16 on the card, timed.
+    Returns the launches of both card runs."""
+    cfg, note = cut_cfg(pkg, "whisper-tiny")
+    b, _, _, _, _, cache_len = FAMILY_SHAPES["whisper-tiny"]
+    run = FAMILY_RUNS["whisper-tiny"]
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    cpu = pkg["Model"](f32, device="cpu")
+    params = cpu.init(seed=0)
+    log(f"  {cfg.name}: {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder"
+        f" layers{note} d_model={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"frames={cfg.n_audio_frames} vocab={cfg.vocab}; "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e6:.2f} M parameters")
+    batch = family_batch(torch, cfg, b, run["s"], [run["s"]] * b, "cpu",
+                         seed=9)
+    t0 = time.perf_counter()
+    want = greedy(torch, cpu, params, batch, cache_len, run["steps"])[0]
+    log(f"  float32 on the CPU: {time.perf_counter() - t0:.2f} s (host)")
+    gpu = pkg["Model"](f32, device="cuda", debug_checks=True)
+    launches, got, _, _ = run_family(
+        torch, ops, gpu, to_device(params, "cuda"), to_device(batch, "cuda"),
+        cache_len, run["steps"], card, "float32 on the card")
+    equal = bool((got.cpu() == want).all())
+    log(f"  float32 tokens, card against CPU: {got.shape[0]} x "
+        f"{got.shape[1]} equal {equal}")
+    if not equal:
+        raise AssertionError("whisper-tiny float32 tokens differ between the "
+                             "card and the CPU")
+    bf16 = pkg["Model"](cfg, device="cuda")
+    bparams = bf16.init(seed=0)
+    bbatch = to_device(batch, "cuda")
+    greedy(torch, bf16, bparams, bbatch, cache_len, 2)   # warm the allocator
+    got, _, _, _ = run_family(torch, ops, bf16, bparams, bbatch, cache_len,
+                              run["steps"], card, "bfloat16 on the card")
+    for name, n in got.items():
+        launches[name] += n
+    free_model(torch)
+    return launches
 
 
 def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
@@ -1898,12 +2274,16 @@ def main(argv: list) -> int:
                                                  decode_page(t_len)))
     for name, t in time_zoo(ops, ref, torch).items():
         log_timing(name, t)
+    for name, t in time_families(ops, ref, torch).items():
+        log_timing(name, t)
 
     clock.start("4. reduced engines, GPU (kernels) against CPU (plain)")
     reduced_engine(torch, pkg, "granite-3-2b")
     reduced_engine(torch, pkg, "granite-3-2b", flags=True)
     reduced_engine(torch, pkg, "xlstm-350m", n_layers=4)
     reduced_zoo(torch, pkg)
+    reduced_engine(torch, pkg, "llava-next-34b")
+    reduced_families(torch, pkg)
 
     clock.start("5. full-width granite-3-2b")
     launches, granite, granite_params = full_width(torch, pkg, ops,
@@ -1940,6 +2320,15 @@ def main(argv: list) -> int:
         zoo.append(full_width(torch, pkg, ops, arch, profile=False)[0])
         gc.collect()
         torch.cuda.empty_cache()
+
+    clock.start("9. the last three families at full width")
+    log("  (a) llava-next-34b through AgentService.engine, then its image "
+        "prefill through Model")
+    zoo.append(family_llava(torch, api, ops, pkg, record, card))
+    log("  (b) zamba2-2.7b through Model")
+    zoo.append(family_zamba2(torch, ops, pkg, card))
+    log("  (c) whisper-tiny through Model")
+    zoo.append(family_whisper(torch, ops, pkg, card))
     for counts in zoo:
         for name, n in counts.items():
             launches[name] += n

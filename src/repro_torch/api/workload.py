@@ -241,9 +241,11 @@ def service_for_backend(
     if backend != "engine":
         raise ValueError(f"unknown backend {backend!r} (sim|engine)")
     from repro_torch.configs import get_config
+    from repro_torch.engine.engine import check_servable
     from repro_torch.models import Model
 
     cfg = get_config(arch).reduced(vocab=vocab)
+    check_servable(cfg)
     model = Model(cfg, device=device)
     params = model.init(seed=seed)
     return AgentService.engine(

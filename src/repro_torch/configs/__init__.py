@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``get_config(arch_id)`` + input shapes.
 
-A copy of the JAX package's registry (pure data), holding the archs the
-port serves so far, in the reference's order and under its ids.  Every
-entry cites its source in the module docstring.
+A copy of the JAX package's registry (pure data): every arch of the
+reference, in its order and under its ids.  Every entry cites its source
+in the module docstring.
 """
 
 from __future__ import annotations
@@ -14,11 +14,14 @@ from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 
 _MODULES = {
     "llama3.2-3b": "llama3_2_3b",
+    "whisper-tiny": "whisper_tiny",
     "granite-3-2b": "granite_3_2b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "mixtral-8x7b": "mixtral_8x7b",
     "dbrx-132b": "dbrx_132b",
+    "llava-next-34b": "llava_next_34b",
     "xlstm-350m": "xlstm_350m",
+    "zamba2-2.7b": "zamba2_2_7b",
     "starcoder2-7b": "starcoder2_7b",
     "llama2-7b": "llama2_7b_paper",
 }
@@ -36,7 +39,8 @@ def get_config(arch: str, *, shape: str | None = None) -> ModelConfig:
     """Resolve an arch id (optionally specialized for an input shape).
 
     ``shape='long_500k'`` applies the arch's LONG_CONTEXT_OVERRIDES (e.g.
-    the sliding-window decode variant for dense archs).
+    the sliding-window decode variant for dense archs).  Raises ValueError
+    if the arch skips that shape (whisper x long_500k).
     """
     mod = _module(arch)
     cfg: ModelConfig = mod.CONFIG

@@ -57,6 +57,12 @@ programs become PyTorch functions that update the cache in place:
 admission prefills the whole prompt as before and charges only the
 uncached suffix; fused admission writes a hit's head through
 ``_prefill_write`` and streams the rest as slices.
+
+The engine serves the families the JAX engine serves: dense, MoE, VLM
+(token prompts, as the dense path) and ssm.  The hybrid and
+encoder-decoder families are served through ``Model.prefill`` /
+``Model.decode`` only; the engine refuses them at construction
+(``check_servable``) where the JAX engine fails at the first prefill.
 """
 
 from __future__ import annotations
@@ -76,6 +82,36 @@ from repro_torch.kernels.ops import kernel_library
 from repro_torch.kvcache.allocator import BlockAllocator
 from repro_torch.kvcache.prefix import PrefixAwareAllocator
 from repro_torch.models import Model
+
+
+#: the families the JAX engine cannot serve: kind -> its limit
+UNSERVED_KINDS = {
+    "hybrid": (
+        "the JAX engine's slot scatter and gather (_prefill_write_jit and "
+        "_gather_slot_jit, src/repro/engine/engine.py:221,232) take every "
+        "cache leaf's batch on axis 1, and the hybrid's mamba_h and "
+        "mamba_conv are (n_super, attn_every, B, ...), so its first "
+        "prefill fails"
+    ),
+    "encdec": (
+        "the JAX engine never passes the audio frames (batch['embeds']) "
+        "that Model.prefill of the encoder-decoder needs, so its first "
+        "prefill fails with KeyError: 'embeds'"
+    ),
+}
+
+
+def check_servable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a family the JAX engine cannot
+    serve (``UNSERVED_KINDS``): the port's engine follows the reference
+    and serves those through ``Model.prefill`` / ``Model.decode`` only."""
+    limit = UNSERVED_KINDS.get(cfg.kind)
+    if limit is not None:
+        raise NotImplementedError(
+            f"the serving engine does not serve the {cfg.kind} family "
+            f"({cfg.name}): {limit}; run it through Model.prefill and "
+            "Model.decode"
+        )
 
 
 # --------------------------------------------------------------------------
@@ -322,6 +358,7 @@ class ServeEngine:
         suspend_retention: str = "hold",
         device: Any = None,
     ):
+        check_servable(model.cfg)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(

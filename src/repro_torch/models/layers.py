@@ -208,16 +208,28 @@ class AttnDims:
     head_dim: int
 
 
+def stacked_normal(gen: torch.Generator, lead: tuple, shape: tuple,
+                   scale: float, dtype, device):
+    """A ``(*lead, *shape)`` tensor of ``dtype`` filled with scaled normal
+    draws one leading index at a time: each ``shape`` part is drawn in
+    float32, scaled and cast into the preallocated stack, so that a float32
+    draw of the whole stack (twice a bfloat16 stack's size, and a scaled
+    copy beside it) never exists."""
+    out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+    for part in out.view(-1, *shape):
+        part.copy_(torch.randn(shape, generator=gen, device=device) * scale)
+    return out
+
+
 def init_attention(gen: torch.Generator, d_model: int, dims: AttnDims,
                    dtype, device, lead: tuple = ()):
     """``lead``: leading shape of the leaves, e.g. ``(n_layers,)`` for the
-    layer-stacked layout."""
+    layer-stacked layout (drawn one layer at a time)."""
     scale = d_model ** -0.5
     nh, nkv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
 
     def normal(*shape):
-        return (torch.randn((*lead, *shape), generator=gen, device=device)
-                * scale).to(dtype)
+        return stacked_normal(gen, lead, shape, scale, dtype, device)
 
     return {
         "wq": normal(d_model, nh, hd),
@@ -227,14 +239,15 @@ def init_attention(gen: torch.Generator, d_model: int, dims: AttnDims,
     }
 
 
+def project_heads(x, w):
+    """x: (B,S,D) @ w: (D,n,hd) -> (B,S,n,hd) (JAX: einsum bsd,dnh->bsnh)."""
+    b, s, d = x.shape
+    return (x @ w.reshape(d, -1)).reshape(b, s, *w.shape[1:])
+
+
 def attention_qkv(p, x, positions, theta: float, use_rope: bool):
     """Project and (optionally) rotate. x: (B,S,D) -> q,k,v (B,S,n,hd)."""
-    b, s, d = x.shape
-
-    def proj(w):
-        return (x @ w.reshape(d, -1)).reshape(b, s, w.shape[1], w.shape[2])
-
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    q, k, v = (project_heads(x, p[w]) for w in ("wq", "wk", "wv"))
     if use_rope:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
@@ -252,8 +265,7 @@ def attention_out(p, o):
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
              lead: tuple = ()):
     def normal(shape, scale):
-        return (torch.randn((*lead, *shape), generator=gen, device=device)
-                * scale).to(dtype)
+        return stacked_normal(gen, lead, shape, scale, dtype, device)
 
     return {
         "w1": normal((d_model, d_ff), d_model ** -0.5),
@@ -273,16 +285,11 @@ def gated_mlp(p, x):
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
              dtype, device, lead: tuple = ()):
     """The router (float32, as JAX keeps it) and the stacked expert
-    weights ``(*lead, E, ...)``.  Drawn one leading index at a time into
-    the stack, so that a float32 draw of a whole ``(L, E, d, f)`` stack
-    (twice its bfloat16 size) never exists."""
+    weights ``(*lead, E, ...)``, drawn one layer at a time
+    (``stacked_normal``)."""
 
     def normal(shape, scale, dt):
-        out = torch.empty((*lead, *shape), dtype=dt, device=device)
-        for part in out.view(-1, *shape):
-            part.copy_(torch.randn(shape, generator=gen, device=device)
-                       * scale)
-        return out
+        return stacked_normal(gen, lead, shape, scale, dt, device)
 
     return {
         "router": normal((d_model, n_experts), d_model ** -0.5,

@@ -14,11 +14,13 @@ import numpy as np
 import torch
 
 #: leaves that ``Model.init`` keeps in float32 whatever the compute dtype:
-#: the norm scales, the MoE router, and the xLSTM gate projections, gate
-#: biases and per-head norm scales
+#: the norm scales, the MoE router, the xLSTM gate projections, gate
+#: biases and per-head norm scales, and Mamba2's decay logs, step biases,
+#: skip scales and gated-norm scales
 F32_KEYS = frozenset(
     {"ln1", "ln2", "ln_x", "ln_m", "ln_s", "ln", "final_norm",
-     "enc_final_norm", "router", "w_if", "b_if", "norm_w"}
+     "enc_final_norm", "router", "w_if", "b_if", "norm_w", "a_log",
+     "dt_bias", "d_skip"}
 )
 #: (parent, leaf) pairs kept in float32: the sLSTM's recurrent matrices and
 #: bias (names too short to be unambiguous on their own)

@@ -1,10 +1,17 @@
-"""xLSTM sequence mixers of the port: the mLSTM and sLSTM blocks.
+"""State-space and recurrent sequence mixers of the port: Mamba2 (SSD) and
+the xLSTM's mLSTM and sLSTM blocks.
 
-PyTorch counterparts of the xLSTM part of ``repro.models.ssm``, with the
-same names, argument order, parameter keys and state layouts (per layer):
+PyTorch counterparts of ``repro.models.ssm``, with the same names,
+argument order, parameter keys and state layouts (per layer):
 
+  mamba2:  h: (B, H, P, N)  conv: (B, W-1, d_inner + 2N)
   mlstm:   C: (B, H, hd, hd)  n: (B, H, hd)  m: (B, H)
   slstm:   c, n, h: (B, H, hd)  m: (B, H, hd)
+
+Mamba2 is plain PyTorch, as no Pallas kernel computes it: the chunkwise
+SSD form (``mamba2_forward_chunked``) for prefill, and the per-step
+recurrence (``mamba2_forward``, its oracle) for decode.  Its state stays
+float32; y is cast to x's dtype before the gated RMSNorm, as in JAX.
 
 The chunkwise mLSTM of prefill runs through ``ops.mlstm_chunk``: the CUDA
 kernel on the card, its plain version on the CPU.  The projections and
@@ -12,8 +19,7 @@ gates around it are plain matrix products, as the JAX package leaves them
 to XLA.  The per-step forms (``mlstm_forward``, ``mlstm_decode``) and the
 whole sLSTM are plain PyTorch: no Pallas kernel computes them.
 ``slstm_forward`` projects the whole input once and then loops over the
-recurrent step token by token, as the JAX ``lax.scan`` does.  Mamba2 (the
-hybrid family) is not ported yet.
+recurrent step token by token, as the JAX ``lax.scan`` does.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import mlstm_chunk
 from repro_torch.kernels.ref import empty_mlstm_state
+from repro_torch.models.layers import stacked_normal
 
 #: tokens per chunk of the chunkwise mLSTM (the kernel's largest tile); any
 #: prompt length runs, the last chunk masked
@@ -51,6 +58,190 @@ def rms_head_norm(h, w):
     h32 = h.float()
     y = h32 * torch.rsqrt(torch.mean(h32 * h32, dim=-1, keepdim=True) + 1e-5)
     return (y * w).to(h.dtype)
+
+
+# ------------------------------------------------------------------- mamba2
+
+
+def mamba2_dims(d_model: int, d_state: int):
+    d_inner = 2 * d_model
+    p = 64                       # head dim (Mamba2 default)
+    h = d_inner // p             # ssm heads
+    return d_inner, p, h, d_state
+
+
+def init_mamba2(gen: torch.Generator, d_model: int, d_state: int,
+                conv_width: int, dtype, device=None, lead: tuple = ()):
+    """``lead``: leading shape of the leaves, e.g. ``(n_super,
+    attn_every)`` for the hybrid's nested stack (drawn one layer at a
+    time).  The decay logs, step biases, skip and norm scales stay
+    float32, as in the JAX package."""
+    d_inner, _, h, n = mamba2_dims(d_model, d_state)
+    ch = d_inner + 2 * n
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def per_head(v):
+        return v.expand(*lead, *v.shape).clone()
+
+    return {
+        # fused input projection: [z, x, B, C, dt]
+        "w_in": stacked_normal(gen, lead, (d_model, 2 * d_inner + 2 * n + h),
+                               d_model ** -0.5, dtype, device),
+        "conv_w": stacked_normal(gen, lead, (conv_width, ch), 0.1, dtype,
+                                 device),
+        "conv_b": torch.zeros((*lead, ch), dtype=dtype, device=device),
+        "a_log": per_head(torch.log(torch.linspace(1.0, 16.0, h, **f32))),
+        "dt_bias": torch.zeros((*lead, h), **f32),
+        "d_skip": torch.ones((*lead, h), **f32),
+        "w_out": stacked_normal(gen, lead, (d_inner, d_model),
+                                d_inner ** -0.5, dtype, device),
+        "norm_w": torch.ones((*lead, d_inner), **f32),
+    }
+
+
+def _mamba2_project(p, x, conv_state=None):
+    """Shared projection+conv for prefill and decode.
+
+    x: (B, S, D).  Returns z, xs, bv, cv, dt and the new conv state (the
+    last W-1 rows of the conv input, padding rows included)."""
+    b, s, d_model = x.shape
+    d_inner = 2 * d_model
+    h = p["a_log"].shape[0]
+    n = (p["w_in"].shape[1] - 2 * d_inner - h) // 2
+
+    zxbc = x @ p["w_in"]
+    z = zxbc[..., :d_inner]
+    xbc = zxbc[..., d_inner:2 * d_inner + 2 * n]
+    dt = zxbc[..., -h:]
+
+    w = p["conv_w"].shape[0]
+    if conv_state is None:
+        conv_state = torch.zeros((b, w - 1, xbc.shape[-1]), dtype=xbc.dtype,
+                                 device=x.device)
+    xbc_pad = torch.cat([conv_state, xbc], dim=1)
+    new_conv_state = xbc_pad[:, -(w - 1):]
+    # causal depthwise conv via stacked shifts (w is small, 4)
+    conv = sum(xbc_pad[:, i:i + s] * p["conv_w"][i]
+               for i in range(w)) + p["conv_b"]
+    conv = F.silu(conv)
+    return (z, conv[..., :d_inner], conv[..., d_inner:d_inner + n],
+            conv[..., d_inner + n:], dt, new_conv_state)
+
+
+def _mamba2_steps(p, x, conv_state):
+    """The projection, softplus step sizes ``dt`` and per-step log decays
+    ``a * dt`` (B,S,H) float32, with xs as (B,S,H,P)."""
+    b, s, d_model = x.shape
+    h = p["a_log"].shape[0]
+    z, xs, bv, cv, dt, new_conv = _mamba2_project(p, x, conv_state)
+    xs = xs.reshape(b, s, h, (2 * d_model) // h)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    return z, xs, bv, cv, dt, -torch.exp(p["a_log"]) * dt, new_conv
+
+
+def _mamba2_out(p, x, y, xs, z):
+    """Skip term, the cast of y to x's dtype, the gated RMSNorm (Mamba2
+    style, float32) and the output projection.  y: (B,S,H,P) float32."""
+    b, s = x.shape[:2]
+    y = y + xs.float() * p["d_skip"][..., None]
+    y = y.reshape(b, s, -1).to(x.dtype)
+    y32 = y.float() * F.silu(z.float())
+    y32 = y32 * torch.rsqrt(
+        torch.mean(y32 * y32, dim=-1, keepdim=True) + 1e-5
+    ) * p["norm_w"]
+    return y32.to(x.dtype) @ p["w_out"]
+
+
+def mamba2_forward(p, x, state=None, conv_state=None):
+    """Per-step form (the oracle of the chunkwise form, and decode).
+    x: (B,S,D) -> (y, (ssm_state, conv_state))."""
+    b, s, _ = x.shape
+    z, xs, bv, cv, dt, log_lam, new_conv = _mamba2_steps(p, x, conv_state)
+    if state is None:
+        state = torch.zeros((b, *xs.shape[2:], bv.shape[-1]),
+                            dtype=torch.float32, device=x.device)
+    decay = torch.exp(log_lam)
+    xf, bf, cf = xs.float(), bv.float(), cv.float()
+    ys = []
+    for t in range(s):
+        # outer product update: h = dec*h + dt * x (x) B
+        upd = torch.einsum("bhp,bn->bhpn", xf[:, t] * dt[:, t, :, None],
+                           bf[:, t])
+        state = state * decay[:, t, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, t]))
+    y = torch.stack(ys, dim=1)
+    return _mamba2_out(p, x, y, xs, z), (state, new_conv)
+
+
+def mamba2_forward_chunked(p, x, state=None, conv_state=None,
+                           chunk: int = 512):
+    """Chunkwise SSD form (Mamba2 paper §6): quadratic only within a
+    chunk, the same math as the per-step recurrence.  Per head, with
+    cum_t the running sum of the log decays a*dt_j (<= 0):
+
+      y_t   = e^{cum_t} (C_t . H_0) + sum_{j<=t} e^{cum_t-cum_j} (C_t.B_j) u_j
+      H_out = e^{cum_L} H_0 + sum_j e^{cum_L-cum_j} u_j (x) B_j
+
+    The chunk size is JAX's rule: ``s // max(1, s // min(chunk, s))``,
+    raised until it divides S."""
+    b, s, _ = x.shape
+    z, xs, bv, cv, dt, log_lam, new_conv = _mamba2_steps(p, x, conv_state)
+    h, pdim = xs.shape[2:]
+    n = bv.shape[-1]
+    if state is None:
+        state = torch.zeros((b, h, pdim, n), dtype=torch.float32,
+                            device=x.device)
+
+    c = s // max(1, s // min(chunk, s))
+    while s % c:
+        c += 1
+    nc = s // c
+
+    ug = (xs.float() * dt[..., None]).reshape(b, nc, c, h, pdim)
+    bg = bv.float().reshape(b, nc, c, n)
+    cg = cv.float().reshape(b, nc, c, n)
+    lg = log_lam.reshape(b, nc, c, h)
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+    ys = []
+    for i in range(nc):
+        u_c, b_c, c_c = ug[:, i], bg[:, i], cg[:, i]
+        cum = torch.cumsum(lg[:, i], dim=1)                       # (B,c,H)
+        # intra-chunk decay-weighted "attention" (B,c,c,H): the exponent
+        # is positive in the masked upper triangle, so it is zeroed before
+        # the exp
+        expo = cum[:, :, None, :] - cum[:, None, :, :]            # t, j
+        ratio = torch.exp(torch.where(causal, expo, 0.0))
+        cb = torch.einsum("btn,bjn->btj", c_c, b_c)
+        g = torch.where(causal, cb[..., None] * ratio, 0.0)
+        y_intra = torch.einsum("btjh,bjhp->bthp", g, u_c)
+        y_inter = torch.exp(cum)[..., None] * torch.einsum(
+            "btn,bhpn->bthp", c_c, state)
+        # chunk-final state
+        wj = torch.exp(cum[:, -1:, :] - cum)                      # (B,c,H)
+        upd = torch.einsum("bjhp,bjn,bjh->bhpn", u_c, b_c, wj)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + upd
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)
+    return _mamba2_out(p, x, y, xs, z), (state, new_conv)
+
+
+def mamba2_decode(p, x1, state, conv_state):
+    """One-token decode. x1: (B,1,D)."""
+    return mamba2_forward(p, x1, state=state, conv_state=conv_state)
+
+
+def mamba2_init_state(p, batch: int, d_model: int):
+    h = p["a_log"].shape[0]
+    pdim = (2 * d_model) // h
+    n = (p["w_in"].shape[1] - 4 * d_model - h) // 2
+    w = p["conv_w"].shape[0]
+    dev = p["w_in"].device
+    return (
+        torch.zeros((batch, h, pdim, n), dtype=torch.float32, device=dev),
+        torch.zeros((batch, w - 1, 2 * d_model + 2 * n),
+                    dtype=p["conv_w"].dtype, device=dev),
+    )
 
 
 # -------------------------------------------------------------------- mlstm

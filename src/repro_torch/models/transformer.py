@@ -1,5 +1,5 @@
-"""The dense-path Model of the port: PyTorch counterpart of
-``repro.models.transformer``.
+"""The Model of the port: PyTorch counterpart of
+``repro.models.transformer``, every family of the JAX package.
 
 Same entry points, argument order and layouts as the JAX ``Model``:
 parameters are a dict of layer-stacked ``(L, ...)`` tensors and caches
@@ -47,9 +47,28 @@ the recurrent state ``mlstm_c/n/m`` and ``slstm_c/n/h/m``, each
 the ``mlstm_chunk`` kernel (``models/ssm.py``); decode is the plain per-step
 recurrence.
 
-The dense, MoE and ssm families are served, ring caches included: VLM,
-encoder-decoder and hybrid raise ``NotImplementedError`` naming the slice
-that brings them.
+The VLM family (llava-next-34b) is the dense decoder: ``prefill`` with
+``batch["embeds"]`` prepends the image embeddings to the text's token
+embeddings (no position embedding on the text rows), runs positions
+``arange`` over image plus text, and counts the image in ``lens``, as
+JAX's ``prefill`` does; without embeddings it is the dense path.
+
+The hybrid family (zamba2) keeps JAX's nested layout:
+``params["super_blocks"]`` holds ``(n_super, attn_every, ...)`` Mamba2
+leaves and one ``shared_attn`` dense block is applied after each group,
+each application with its own KV cache ``k``/``v`` ``(n_super, B, T, ...)``;
+the cache also holds ``mamba_h`` ``(n_super, attn_every, B, H, P, N)``
+float32 and ``mamba_conv`` ``(n_super, attn_every, B, W-1, d_inner+2N)``.
+Mamba2 is plain PyTorch (``models/ssm.py``); the shared block's attention
+runs flash in prefill and paged decode on a full cache.  As in JAX, a
+ragged batch's padding rows run through the Mamba2 state, so the shared
+block gives them JAX's masked attention too (``_padded_queries``).
+
+The encoder-decoder family (whisper) runs the bidirectional encoder on the
+plain ``gqa_attention`` (no Pallas kernel computes it), the decoder's
+causal self-attention through flash in prefill and paged decode in decode
+(``dense_block_decode_selfonly``), and cross-attention on the plain
+attention over ``cross_k``/``cross_v`` ``(L, B, F, n_kv, hd)``, as JAX.
 """
 
 from __future__ import annotations
@@ -74,6 +93,7 @@ from repro_torch.models.layers import (
     init_mlp,
     init_moe,
     moe_mlp,
+    project_heads,
     rms_norm,
 )
 
@@ -93,20 +113,12 @@ def _dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _unsupported(what: str, later: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it arrives with the {later} slice"
-    )
+#: the families of the JAX ``Model``, every one ported
+KINDS = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.kind == "vlm":
-        raise _unsupported("the VLM family", "other-families")
-    if cfg.kind == "encdec":
-        raise _unsupported("the encoder-decoder family", "other-families")
-    if cfg.kind == "hybrid":
-        raise _unsupported("the hybrid family", "other-families")
-    if cfg.kind not in ("dense", "moe", "ssm"):
+    if cfg.kind not in KINDS:
         raise ValueError(f"unknown kind {cfg.kind}")
 
 
@@ -250,11 +262,15 @@ def _decode_attention(q, k_cache, v_cache, pos, pages=None):
 # ===========================================================================
 
 
-def init_dense_blocks(gen: torch.Generator, cfg: ModelConfig, dtype, device):
+def init_dense_blocks(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+                      lead: Optional[tuple] = None):
     """The layer-stacked block parameters (JAX: ``vmap(init_dense_block)``):
     a ``moe`` leaf (router and ``(L, E, ...)`` experts) where the config
-    has experts, else ``mlp``."""
-    lead = (cfg.n_layers,)
+    has experts, else ``mlp``.  ``lead``: the stack's leading shape,
+    ``(n_layers,)`` unless given (``()`` for the hybrid's one shared
+    block); every weight is drawn one layer at a time."""
+    if lead is None:
+        lead = (cfg.n_layers,)
     dims = AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     ones = torch.ones((*lead, cfg.d_model), dtype=torch.float32,
                       device=device)
@@ -281,18 +297,40 @@ def block_ffn(p, x, cfg: ModelConfig):
     return gated_mlp(p["mlp"], x), 0.0
 
 
-def dense_block_train(p, x, positions, cfg: ModelConfig, attn_mask_lens=None):
+def _padded_queries(q, k, v, att, lens, window: int):
+    """Overwrite the flash output of each row's padded queries (positions
+    at or past its length) with JAX's masked attention, which hides every
+    padded key from them: they attend to the row's real keys only, where
+    the causal flash kernel lets them see the padding before them.  One
+    plain attention per ragged row (a host read of ``lens``)."""
+    s = q.shape[1]
+    idx = torch.arange(s, device=q.device)[None]
+    for b, n in enumerate(lens.tolist()):
+        if n < s:
+            att[b:b + 1, n:] = gqa_attention(
+                q[b:b + 1, n:], k[b:b + 1], v[b:b + 1], window=window,
+                q_positions=idx[:, n:], kv_positions=idx, kv_valid=idx < n)
+    return att
+
+
+def dense_block_train(p, x, positions, cfg: ModelConfig, attn_mask_lens=None,
+                      padded_rows: bool = False):
     """Full-sequence causal block (prefill compute).
 
     Returns (x, (k, v, moe_aux)) so prefill can collect the cache.
-    ``positions`` must be ``arange(S)`` per row, as every caller passes;
-    ``attn_mask_lens`` is accepted for the JAX signature and needs no mask
-    (see the module doc).
+    ``positions`` must be ``arange(S)`` per row, as every caller passes.
+    ``attn_mask_lens`` needs no mask for the real rows (see the module
+    doc); ``padded_rows=True`` also makes the padded rows JAX's
+    (``_padded_queries``), for the hybrid, whose padded rows run on
+    through the Mamba2 state.
     """
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attention_qkv(p["attn"], h, positions, cfg.rope_theta,
                             cfg.use_rope)
     att = _prefill_attention(q, k, v, cfg.sliding_window)
+    if padded_rows and attn_mask_lens is not None:
+        att = _padded_queries(q, k, v, att, attn_mask_lens,
+                              cfg.sliding_window)
     x = x + attention_out(p["attn"], att)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = block_ffn(p, h2, cfg)
@@ -355,6 +393,53 @@ def dense_block_decode(p, x, pos, k_cache, v_cache, kv_pos, cfg: ModelConfig,
 
 
 # ===========================================================================
+# encoder-decoder and hybrid blocks
+# ===========================================================================
+
+
+def init_decoder_blocks(gen: torch.Generator, cfg: ModelConfig, dtype,
+                        device):
+    """The encoder-decoder's layer-stacked decoder blocks (JAX:
+    ``vmap(_init_decoder_block)``): the dense blocks' self-attention and
+    gated MLP, plus cross-attention behind its own norm ``ln_x``."""
+    p = init_dense_blocks(gen, cfg, dtype, device)
+    p["ln_x"] = torch.ones_like(p["ln1"])
+    p["xattn"] = init_attention(
+        gen, cfg.d_model, AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        dtype, device, (cfg.n_layers,))
+    return p
+
+
+def dense_block_decode_selfonly(p, x, pos, k_cache, v_cache, kv_pos,
+                                cfg: ModelConfig, pages=None):
+    """Self-attention part of a decoder block (cross-attention handled
+    outside), against a full cache updated in place, through the paged
+    kernel (JAX: the masked attention without a window)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k_new, v_new = attention_qkv(
+        p["attn"], h, pos[:, None], cfg.rope_theta, cfg.use_rope
+    )
+    update_cache(k_cache, k_new, pos)
+    update_cache(v_cache, v_new, pos)
+    update_pos(kv_pos, pos, 1)
+    att = _decode_attention(q, k_cache, v_cache, pos, pages)
+    return x + attention_out(p["attn"], att), k_cache, v_cache, kv_pos
+
+
+def init_mamba_groups(gen: torch.Generator, cfg: ModelConfig, dtype, device):
+    """The hybrid's ``(n_super, attn_every, ...)`` Mamba2 stack (JAX:
+    ``vmap(_init_mamba_group)``): a float32 norm scale and a Mamba2 layer
+    per position."""
+    lead = (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+    return {
+        "ln": torch.ones((*lead, cfg.d_model), dtype=torch.float32,
+                         device=device),
+        "mamba": ssm.init_mamba2(gen, cfg.d_model, cfg.ssm_state,
+                                 cfg.conv_width, dtype, device, lead),
+    }
+
+
+# ===========================================================================
 # xLSTM pairs (the ssm family)
 # ===========================================================================
 
@@ -403,7 +488,8 @@ def _gather_last(x, lens):
 
 
 class Model:
-    """Serving entry points of the dense, MoE and ssm families on one device.
+    """Serving entry points of every family of the JAX ``Model`` on one
+    device.
 
     ``device=None`` means ``cuda`` and raises when there is none; tests pass
     ``device="cpu"``.  ``debug_checks=True`` asserts the slot-contiguity
@@ -416,7 +502,8 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.debug_checks = bool(debug_checks)
-        self._views: tuple[Any, list] = (None, [])
+        #: stack key -> (the stacked tree, its per-layer views)
+        self._views: dict[str, tuple[Any, list]] = {}
 
     # ------------------------------------------------------------ init
 
@@ -445,30 +532,57 @@ class Model:
             ).to(dtype)
         if cfg.kind == "ssm":
             params["xlstm_pairs"] = init_xlstm_pairs(gen, cfg, dtype, dev)
+        elif cfg.kind == "encdec":
+            params["enc_blocks"] = init_dense_blocks(
+                gen, cfg, dtype, dev, lead=(cfg.n_enc_layers,))
+            params["dec_blocks"] = init_decoder_blocks(gen, cfg, dtype, dev)
+            params["enc_pos"] = (
+                torch.randn((cfg.n_audio_frames, cfg.d_model), generator=gen,
+                            device=dev) * 0.02
+            ).to(dtype)
+            params["enc_final_norm"] = torch.ones(
+                (cfg.d_model,), dtype=torch.float32, device=dev)
+        elif cfg.kind == "hybrid":
+            params["super_blocks"] = init_mamba_groups(gen, cfg, dtype, dev)
+            # zamba2's single SHARED attention+MLP block
+            params["shared_attn"] = init_dense_blocks(gen, cfg, dtype, dev,
+                                                      lead=())
         else:
             params["blocks"] = init_dense_blocks(gen, cfg, dtype, dev)
         return params
 
-    def layer_params(self, params) -> list:
-        """Per-layer views of the stacked ``params["blocks"]`` (per-pair
-        views of ``params["xlstm_pairs"]`` for ssm), kept while the same
-        parameter dict is passed in."""
+    def layer_params(self, params, key: Optional[str] = None) -> list:
+        """Per-layer views of the family's main stack, kept while the same
+        parameter dict is passed in: ``params["blocks"]``, per-pair views
+        of ``params["xlstm_pairs"]`` (ssm), of ``params["dec_blocks"]``
+        (encdec; ``key="enc_blocks"`` gives the encoder's), or, for the
+        hybrid, per super-block lists of per-layer views of
+        ``params["super_blocks"]``."""
         cfg = self.cfg
-        if cfg.kind == "ssm":
-            stack, n = params["xlstm_pairs"], cfg.n_layers // cfg.slstm_every
-        else:
-            stack, n = params["blocks"], cfg.n_layers
+        if key is None:
+            key = {"ssm": "xlstm_pairs", "encdec": "dec_blocks",
+                   "hybrid": "super_blocks"}.get(cfg.kind, "blocks")
+        stack = params[key]
         # read once: a replicated fleet serves one model from several
-        # threads, and the pair is replaced whole, never mutated
-        views = self._views
-        if views[0] is not stack:
+        # threads, and each entry is replaced whole, never mutated
+        views = self._views.get(key)
+        if views is None or views[0] is not stack:
             def index(tree, l):
                 if isinstance(tree, dict):
                     return {k: index(v, l) for k, v in tree.items()}
                 return tree[l]
 
-            views = (stack, [index(stack, l) for l in range(n)])
-            self._views = views
+            def per_layer(tree):
+                leaf = tree
+                while isinstance(leaf, dict):
+                    leaf = next(iter(leaf.values()))
+                return [index(tree, l) for l in range(leaf.shape[0])]
+
+            layers = per_layer(stack)
+            if key == "super_blocks":
+                layers = [per_layer(group) for group in layers]
+            views = (stack, layers)
+            self._views[key] = views
         return views[1]
 
     # ------------------------------------------------------------ embed
@@ -514,23 +628,48 @@ class Model:
             }
         t = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
              else cache_len)
-        shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.head_dim)
-        return {
+        # one KV cache per attention layer (per application of the
+        # hybrid's shared block)
+        n = (cfg.n_layers // cfg.attn_every if cfg.kind == "hybrid"
+             else cfg.n_layers)
+        shape = (n, batch, t, cfg.n_kv_heads, cfg.head_dim)
+        cache = {
             "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
             "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
             "kv_pos": torch.full(shape[:3], -1, dtype=torch.int32,
                                  device=dev),
         }
+        if cfg.kind == "encdec":
+            cross = (n, batch, cfg.n_audio_frames, cfg.n_kv_heads,
+                     cfg.head_dim)
+            cache["cross_k"] = torch.zeros(cross, dtype=_dtype(cfg),
+                                           device=dev)
+            cache["cross_v"] = torch.zeros(cross, dtype=_dtype(cfg),
+                                           device=dev)
+            cache["enc_len"] = torch.zeros((batch,), dtype=torch.int32,
+                                           device=dev)
+        if cfg.kind == "hybrid":
+            d_inner, pdim, h, n_state = ssm.mamba2_dims(cfg.d_model,
+                                                        cfg.ssm_state)
+            lead = (n, cfg.attn_every, batch)
+            cache["mamba_h"] = torch.zeros((*lead, h, pdim, n_state),
+                                           dtype=torch.float32, device=dev)
+            cache["mamba_conv"] = torch.zeros(
+                (*lead, cfg.conv_width - 1, d_inner + 2 * n_state),
+                dtype=_dtype(cfg), device=dev)
+        return cache
 
     def prefill(self, params, batch: dict, cache_len: int):
         """Process the full prompt; returns (last-position logits, cache).
 
-        batch: {"tokens": (B,S), optional "lens": (B,)}.
+        batch: {"tokens": (B,S), optional "embeds", optional "lens": (B,)}.
+        ``embeds``: the VLM's image embeddings (B, n_image, D), prepended
+        to the text (``lens`` counts the text; the image is added to it),
+        or the encoder-decoder's audio frames (B, F, D), which it needs.
+        Other families ignore them, as in JAX.
         """
         cfg = self.cfg
         _check_family(cfg)
-        if "embeds" in batch:
-            raise _unsupported("prefill with embeddings", "VLM")
         tokens = batch["tokens"]
         b, s = tokens.shape
         dev = tokens.device
@@ -539,7 +678,14 @@ class Model:
             lens = torch.full((b,), s, dtype=torch.int32, device=dev)
         cache = self.init_cache(params, b, cache_len)
         positions = torch.arange(s, device=dev)[None].expand(b, s)
-        x = self._embed(params, tokens, positions)
+        if cfg.kind == "vlm" and "embeds" in batch:
+            img = batch["embeds"].to(_dtype(cfg))
+            x = torch.cat([img, params["embed"][tokens.long()]], dim=1)
+            s = x.shape[1]
+            positions = torch.arange(s, device=dev)[None].expand(b, s)
+            lens = lens + img.shape[1]  # prompt = image tokens + text
+        else:
+            x = self._embed(params, tokens, positions)
         if cfg.kind == "ssm":
             # every row runs its whole S tokens (the engine prefills ssm
             # prompts one at a time at their exact length)
@@ -548,15 +694,102 @@ class Model:
                 for key, st in zip(SSM_STATE_KEYS, states):
                     cache[key][l] = st
             return self._logits(params, _gather_last(x, lens)), cache
-        ks, vs = [], []
-        for lp in self.layer_params(params):
-            x, (k, v, _) = dense_block_train(lp, x, positions, cfg,
-                                             attn_mask_lens=lens)
-            ks.append(k)
-            vs.append(v)
+        if cfg.kind == "encdec":
+            x, ks, vs = self._decoder_prefill(params, batch["embeds"], x,
+                                              positions, cache)
+        elif cfg.kind == "hybrid":
+            x, ks, vs = self._hybrid_prefill(params, x, positions, lens,
+                                             cache)
+        else:
+            ks, vs = [], []
+            for lp in self.layer_params(params):
+                x, (k, v, _) = dense_block_train(lp, x, positions, cfg,
+                                                 attn_mask_lens=lens)
+                ks.append(k)
+                vs.append(v)
         cache = self._fill_kv(cache, ks, vs, lens, s)
         logits = self._logits(params, _gather_last(x, lens))
         return logits, cache
+
+    def _run_encoder(self, params, enc):
+        """The bidirectional encoder over frame embeddings (B, F, D) on the
+        plain attention (a query position past every frame, so that every
+        key passes the causal comparison, as JAX builds it), then its
+        final norm."""
+        cfg = self.cfg
+        b, f, _ = enc.shape
+        positions = torch.arange(f, device=enc.device)[None].expand(b, f)
+        q_pos = torch.full((b, f), f + 1, dtype=torch.int32,
+                           device=enc.device)
+        for lp in self.layer_params(params, "enc_blocks"):
+            hn = rms_norm(enc, lp["ln1"], cfg.norm_eps)
+            q, k, v = attention_qkv(lp["attn"], hn, positions,
+                                    cfg.rope_theta, False)
+            att = gqa_attention(q, k, v, q_positions=q_pos,
+                                kv_positions=positions)
+            enc = enc + attention_out(lp["attn"], att)
+            h2 = rms_norm(enc, lp["ln2"], cfg.norm_eps)
+            enc = enc + gated_mlp(lp["mlp"], h2)
+        return rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
+
+    def _decoder_prefill(self, params, frames, x, positions, cache):
+        """The encoder over ``frames`` (B, F, D) plus ``enc_pos``, then the
+        decoder layers over the prompt embeddings ``x``: causal
+        self-attention through flash, cross-attention on the plain
+        attention.  Writes ``cross_k``/``cross_v`` (L, B, F, ...) into the
+        cache; returns x and the self-attention K/V per layer."""
+        cfg = self.cfg
+        enc = frames.to(_dtype(cfg))
+        f = enc.shape[1]
+        enc = self._run_encoder(params, enc + params["enc_pos"][None, :f])
+        b = x.shape[0]
+        enc_pos = torch.arange(f, device=x.device)[None].expand(b, f)
+        q_pos = torch.full_like(positions, f + 1)
+        ks, vs, kxs, vxs = [], [], [], []
+        for lp in self.layer_params(params):
+            hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = attention_qkv(lp["attn"], hn, positions,
+                                    cfg.rope_theta, cfg.use_rope)
+            x = x + attention_out(lp["attn"], _prefill_attention(q, k, v, 0))
+            hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+            kx = project_heads(enc, lp["xattn"]["wk"])
+            vx = project_heads(enc, lp["xattn"]["wv"])
+            qx = project_heads(hx, lp["xattn"]["wq"])
+            xat = attention_any(qx, kx, vx, q_positions=q_pos,
+                                kv_positions=enc_pos)
+            x = x + attention_out(lp["xattn"], xat)
+            h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + gated_mlp(lp["mlp"], h2)
+            ks.append(k)
+            vs.append(v)
+            kxs.append(kx)
+            vxs.append(vx)
+        # JAX replaces the cross cache with the frames' own (F may differ
+        # from the config's n_audio_frames)
+        cache["cross_k"], cache["cross_v"] = torch.stack(kxs), torch.stack(vxs)
+        return x, ks, vs
+
+    def _hybrid_prefill(self, params, x, positions, lens, cache):
+        """Each super block: its Mamba2 layers (chunkwise SSD, every row's
+        whole S, padding included, as JAX runs them), writing their final
+        states into the cache, then the shared attention block through
+        flash.  Returns x and the shared block's K/V per application."""
+        cfg = self.cfg
+        shared = params["shared_attn"]
+        ks, vs = [], []
+        for l, group in enumerate(self.layer_params(params)):
+            for j, lp in enumerate(group):
+                hin = rms_norm(x, lp["ln"], cfg.norm_eps)
+                y, (st, conv) = ssm.mamba2_forward_chunked(lp["mamba"], hin)
+                x = x + y
+                cache["mamba_h"][l, j] = st
+                cache["mamba_conv"][l, j] = conv
+            x, (k, v, _) = dense_block_train(shared, x, positions, cfg,
+                                             attn_mask_lens=lens,
+                                             padded_rows=True)
+            ks.append(k)
+            vs.append(v)
+        return x, ks, vs
 
     def prefill_chunked(self, params, batch: dict, cache_len: int,
                         chunk: int):
@@ -725,11 +958,49 @@ class Model:
         # one page table for every layer of a step on a full cache
         b, t = cache["k"].shape[1:3]
         pages = None if ring else slot_pages(b, t, pos)
-        for l, lp in enumerate(self.layer_params(params)):
-            x, _, _, _ = dense_block_decode(
-                lp, x, pos, cache["k"][l], cache["v"][l],
-                cache["kv_pos"][l], cfg, ring, pages,
-            )
+        kv = [(cache["k"][l], cache["v"][l], cache["kv_pos"][l])
+              for l in range(cache["k"].shape[0])]
+        if cfg.kind == "encdec":
+            x = self._decoder_decode(params, x, pos, kv, cache, pages)
+        elif cfg.kind == "hybrid":
+            shared = params["shared_attn"]
+            for l, group in enumerate(self.layer_params(params)):
+                for j, lp in enumerate(group):
+                    hin = rms_norm(x, lp["ln"], cfg.norm_eps)
+                    st, conv = cache["mamba_h"][l, j], cache["mamba_conv"][l, j]
+                    y, (new_st, new_conv) = ssm.mamba2_decode(
+                        lp["mamba"], hin, st, conv)
+                    x = x + y
+                    st.copy_(new_st)
+                    conv.copy_(new_conv)
+                x = dense_block_decode(shared, x, pos, *kv[l], cfg, ring,
+                                       pages)[0]
+        else:
+            for lp, layer_kv in zip(self.layer_params(params), kv):
+                x = dense_block_decode(lp, x, pos, *layer_kv, cfg, ring,
+                                       pages)[0]
         if self.debug_checks and not ring:
             check_slot_contiguous(cache["kv_pos"], pos)
         return self._logits(params, x), cache
+
+    def _decoder_decode(self, params, x, pos, kv, cache, pages):
+        """The encoder-decoder's decode layers: self-attention through the
+        paged kernel (``dense_block_decode_selfonly``), then
+        cross-attention on the plain attention over the cached
+        ``cross_k``/``cross_v``, then the gated MLP."""
+        cfg = self.cfg
+        b = x.shape[0]
+        f = cache["cross_k"].shape[2]
+        enc_pos = torch.arange(f, device=x.device)[None].expand(b, f)
+        q_pos = torch.full((b, 1), f + 1, dtype=torch.int32, device=x.device)
+        for l, lp in enumerate(self.layer_params(params)):
+            x = dense_block_decode_selfonly(lp, x, pos, *kv[l], cfg,
+                                            pages)[0]
+            hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+            qx = project_heads(hx, lp["xattn"]["wq"])
+            xat = gqa_attention(qx, cache["cross_k"][l], cache["cross_v"][l],
+                                q_positions=q_pos, kv_positions=enc_pos)
+            x = x + attention_out(lp["xattn"], xat)
+            hm = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + gated_mlp(lp["mlp"], hm)
+        return x

@@ -1,9 +1,12 @@
 """The decoder-only configs of the port against the JAX package's (CPU).
 
-* Every new config module (``llama2_7b_paper``, ``llama3_2_3b``,
-  ``starcoder2_7b``, ``h2o_danube_1_8b``, ``mixtral_8x7b``, ``dbrx_132b``)
-  equals the JAX one field by field, its ``LONG_CONTEXT_OVERRIDES`` too,
-  and the registry holds them under the reference's ids, in its order.
+* Every config module the port copies (``llama2_7b_paper``,
+  ``llama3_2_3b``, ``starcoder2_7b``, ``h2o_danube_1_8b``,
+  ``mixtral_8x7b``, ``dbrx_132b``, and since the last families' slice
+  ``whisper_tiny``, ``llava_next_34b``, ``zamba2_2_7b``) equals the JAX one
+  field by field, its ``LONG_CONTEXT_OVERRIDES`` too (whisper skips
+  long_500k in both), and the registry holds every arch of the reference
+  under its id, in its order.
 * Reduced llama2-7b, llama3.2-3b, starcoder2-7b and h2o-danube-1.8b at
   float32 with bridged parameters, keeping each arch's real ratio of q
   heads to kv heads (1, 3, 9 and 4): prefill and decode logits within
@@ -13,7 +16,8 @@
   and every sampled token.
 * The record of ``tests/torch_api_jax_runs.json`` holds at llama2-7b and
   mixtral-8x7b in the runs ``chip_smoke.py`` phase 8 serves them in, and
-  ``service_for_backend`` serves every new arch.
+  ``service_for_backend`` serves every new decoder-only arch and
+  llava-next-34b.
 """
 
 import dataclasses
@@ -55,6 +59,12 @@ NEW_ARCHS = {
     "mixtral-8x7b": "mixtral_8x7b",
     "dbrx-132b": "dbrx_132b",
 }
+#: the configs of the last families' slice
+FAMILY_ARCHS = {
+    "whisper-tiny": "whisper_tiny",
+    "llava-next-34b": "llava_next_34b",
+    "zamba2-2.7b": "zamba2_2_7b",
+}
 #: reduced dense archs with their real q-per-kv ratio (``reduced()`` alone
 #: gives 4/2 heads, qpk 2, at every arch)
 DENSE_ZOO = {
@@ -68,21 +78,24 @@ DENSE_ZOO = {
 # ---------------------------------------------------------------- configs
 
 
-@pytest.mark.parametrize("arch", list(NEW_ARCHS))
+@pytest.mark.parametrize("arch", list(NEW_ARCHS) + list(FAMILY_ARCHS))
 def test_config_equals_jax(arch):
-    mod = NEW_ARCHS[arch]
+    mod = {**NEW_ARCHS, **FAMILY_ARCHS}[arch]
     jax_mod = importlib.import_module(f"repro.configs.{mod}")
     port_mod = importlib.import_module(f"repro_torch.configs.{mod}")
     assert dataclasses.asdict(torch_get_config(arch)) == \
         dataclasses.asdict(get_config(arch))
     assert port_mod.LONG_CONTEXT_OVERRIDES == jax_mod.LONG_CONTEXT_OVERRIDES
+    if jax_mod.LONG_CONTEXT_OVERRIDES is None:
+        with pytest.raises(ValueError, match="skips long_500k"):
+            torch_get_config(arch, shape="long_500k")
+        return
     assert dataclasses.asdict(torch_get_config(arch, shape="long_500k")) == \
         dataclasses.asdict(get_config(arch, shape="long_500k"))
 
 
 def test_registry_holds_the_reference_ids_in_its_order():
-    assert set(NEW_ARCHS) <= set(ALL_ARCHS)
-    assert ALL_ARCHS == [a for a in JAX_ARCHS if a in ALL_ARCHS]
+    assert ALL_ARCHS == JAX_ARCHS
 
 
 # ------------------------------------------------------------ model logits
@@ -196,12 +209,12 @@ def test_zoo_runs_hold_the_record(arch, run):
     assert smoke.record_diff(got, RECORD["runs"][run]) == ""
 
 
-@pytest.mark.parametrize("arch", list(NEW_ARCHS))
+@pytest.mark.parametrize("arch", list(NEW_ARCHS) + ["llava-next-34b"])
 def test_service_for_backend_serves_the_arch(arch):
     """``service_for_backend("engine", arch=...)`` builds each new arch
     (reduced, as the launcher does: mixtral's window of 64 makes its
-    512-token cache a ring) and serves the launcher's open workload as the
-    JAX record has it."""
+    512-token cache a ring; llava's token prompts, as the dense path) and
+    serves the launcher's open workload as the JAX record has it."""
     svc = api.service_for_backend("engine", "justitia", arch=arch,
                                   device="cpu")
     handles = svc.submit_many(smoke.api_specs(api, smoke.API_RUNS["open"]))

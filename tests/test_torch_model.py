@@ -176,24 +176,22 @@ def test_debug_check_catches_non_contiguous_cache(models):
     ("encdec", dict(n_enc_layers=2)),
 ])
 def test_later_slices_raise(models, kind, over):
-    """Families of later slices (vlm, hybrid, encdec) refuse with
-    NotImplementedError naming their slice.  The MoE family and the ring
-    layout (a sliding window smaller than the cache) are served since the
-    decoder-only zoo's slice: they build a cache and decode (tests/test_torch_moe.py
-    and tests/test_torch_ring.py hold them to JAX)."""
-    _, _, tm, tp = models
+    """Every family of the later slices is served now: the MoE family and
+    the ring layout (a sliding window smaller than the cache) since the
+    decoder-only zoo's slice, vlm, hybrid and encdec since the last
+    families' (tests/test_torch_moe.py, test_torch_ring.py and
+    test_torch_families.py hold them to JAX).  Each builds its parameters
+    and a cache and decodes to finite logits."""
+    _, _, tm, _ = models
     cfg = dataclasses.replace(tm.cfg, kind=kind, **over)
     m = Model(cfg, device="cpu")
-    if kind in ("moe", "dense"):
-        params = m.init(seed=0)
-        cache = m.init_cache(params, 1, 64)
-        logits, _ = m.decode(params, cache,
-                             torch.zeros((1, 1), dtype=torch.int32),
-                             torch.zeros((1,), dtype=torch.int32))
-        assert bool(torch.isfinite(logits).all())
-        return
-    with pytest.raises(NotImplementedError, match="slice"):
-        m.init_cache(tp, 1, 64)
+    params = m.init(seed=0)
+    cache = m.init_cache(params, 1, 64)
+    logits, _ = m.decode(params, cache,
+                         torch.zeros((1, 1), dtype=torch.int32),
+                         torch.zeros((1,), dtype=torch.int32))
+    assert logits.shape == (1, 1, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 

@@ -55,7 +55,8 @@ def bridged_engines(arch: str, **over) -> dict:
     jm = JaxModel(get_config(arch).reduced(**over))
     jp = jm.init(jax.random.PRNGKey(0))
     tm = Model(torch_get_config(arch).reduced(**over), device="cpu",
-               debug_checks=torch_get_config(arch).kind in ("dense", "moe"))
+               debug_checks=torch_get_config(arch).kind in ("dense", "moe",
+                                                           "vlm"))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     return {
         "jax": (JaxEngine, (JaxAgent, InferenceSpec, agent_cost),
