@@ -43,7 +43,9 @@ Phases, each of which fails the run (exit code 1) on error:
    three families' full-width shapes (``FAMILY_SHAPES``: llava-next-34b's
    qpk 7 at hd 128, B 2 x S 3,136, zamba2-2.7b's MHA at hd 80, B 4 x S
    1,024, whisper-tiny's 6/6 at hd 64), within ``TOL``, with kernel, plain,
-   SDPA and bound at each;
+   SDPA and bound at each; and each of the three wrappers refuses an input
+   that requires grad while grad mode is on (no kernel has a backward)
+   and launches under ``torch.no_grad()``;
 4. reduced engines: reduced granite-3-2b and reduced xlstm-350m at float32
    served on the GPU (the kernels) and on the CPU (the plain versions)
    under three schedulers with a pool small enough to force swaps;
@@ -123,13 +125,32 @@ Phases, each of which fails the run (exit code 1) on error:
    frames and a 32-token prompt, 64 greedy steps, at float32 on the card
    and on the CPU (every token equal), then at bf16 on the card (flash 4
    times and paged 4 x 64 in each card run).  The engine does not serve
-   the hybrid and the encoder-decoder, as the JAX engine cannot.
+   the hybrid and the encoder-decoder, as the JAX engine cannot;
+10. the agent cost predictor and training: (a) ``AgentCostPredictor`` fitted
+   on the card in Table 1's MLP-row setting (EV and SC, 100 training and
+   40 held-out agents each, 64 features), each class's held-out relative
+   error under 120 %, its fit time and the median latency of
+   ``predict(cls, prompt)``, its costs against a CPU fit logged (Adam's
+   eps magnifies ulps, so they are not gated), one ``_adam_step`` card
+   against CPU within 1e-5, and the heavy pooled baseline trained on the
+   card with finite costs; (b) reduced granite-3-2b at float32: one
+   ``make_train_step`` step card against CPU (loss, grad norm and every
+   parameter within 1e-4, but for the elements whose gradient is nonzero
+   and below 1e-6, which Adam's first step normalises by |g| + 1e-8: held
+   to 2 lr), ``tests/test_training.py``'s 80-step learning check (the least
+   of the last 5 losses under 0.75 ln 128), and a checkpoint written on
+   the card restored on the CPU, every leaf equal; (c) full-width
+   granite-3-2b at bf16 through ``repro_torch.launch.train``'s code path
+   (``TRAIN_FULL_ARGS``: ``--no-reduced``, batch 8, seq 512, 10 steps):
+   every loss and grad norm finite and no kernel launched (training runs
+   the plain attention, as the JAX package), the loss curve, the seconds
+   per step and the peak memory logged.
 
 Each full-width phase and each phase-7, phase-8 and phase-9 run zeroes the launch
 counts just before it serves and reads them just after; each phase's wall
 time is logged when the next starts.  The last lines are the card's name and power
 limit, one ``{"kernels": ...}`` JSON line (launches summed over phases 5,
-6, 8 and 9; max |d| the larger of the granite and llama2-7b shapes' in
+6, 8 and 9; phase 10 launches none; max |d| the larger of the granite and llama2-7b shapes' in
 bfloat16) and, last, ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -271,6 +292,15 @@ REDUCED_FAMILIES = {
 }
 #: logits of phase 4's reduced families, card against CPU, at float32
 FAMILY_LOGIT_TOL = 1e-4
+#: phase 10's predictor setting: Table 1's MLP row (tests/test_predictor.py)
+PREDICTOR_CLASSES = ("EV", "SC")
+PREDICTOR_FEATURES = 64
+PREDICTOR_ERR_BOUND = 120.0
+#: phase 10's reduced train step, card against CPU, at float32
+TRAIN_TOL = 1e-4
+#: phase 10's full-width training run, through the launcher's flags
+TRAIN_FULL_ARGS = ["--no-reduced", "--batch", "8", "--seq", "512",
+                   "--steps", "10"]
 
 
 def log(msg: str) -> None:
@@ -427,6 +457,42 @@ def check_paged(ops, ref, torch, gen, split_plan, decode_page) -> dict:
             if label and dtype == torch.bfloat16:
                 errs[label] = err
     return errs
+
+
+def check_grad_guard(ops, torch) -> None:
+    """Each wrapper refuses, on the card, an input that requires grad while
+    grad mode is on (no kernel has a backward), and launches under
+    ``torch.no_grad()``."""
+    def cuda(*shape, grad=False, dtype=torch.float32):
+        return torch.zeros(*shape, device="cuda", dtype=dtype,
+                           requires_grad=grad)
+
+    pages = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+    calls = {
+        "paged_gqa_decode": lambda q: ops.paged_gqa_decode(
+            q[:, 0], cuda(4, 16, 2, 64), cuda(4, 16, 2, 64), pages,
+            torch.tensor([40], dtype=torch.int32, device="cuda")),
+        "flash_prefill": lambda q: ops.flash_prefill(
+            q, cuda(1, 64, 2, 64), cuda(1, 64, 2, 64), block_q=64,
+            block_k=64),
+        "mlstm_chunk": lambda q: ops.mlstm_chunk(
+            q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2),
+            cuda(1, 4, 64), cuda(1, 4, 64)),
+    }
+    for name, call in calls.items():
+        q = cuda(1, 64, 4, 64, grad=True)
+        try:
+            call(q)
+        except RuntimeError as exc:
+            if "no backward" not in str(exc):
+                raise
+            log(f"  {name} refuses an input that requires grad: {exc}")
+        else:
+            raise AssertionError(f"{name} launched on an input that "
+                                 "requires grad")
+        with torch.no_grad():
+            call(q)
+    torch.cuda.synchronize()
 
 
 def check_flash(ops, ref, torch, gen, flash_path) -> dict:
@@ -852,6 +918,8 @@ class EventLog:
 def to_device(tree, device):
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -2123,6 +2191,249 @@ def family_whisper(torch, ops, pkg, card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 10
+
+
+def table1_samples(sample_agent):
+    """``tests/test_predictor.py``'s Table-1 MLP-row setting: per class
+    (EV, SC) 100 training and 40 held-out agents, from one seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    samples, test = {}, {}
+    for cls in PREDICTOR_CLASSES:
+        tr = [sample_agent(rng, cls) for _ in range(100)]
+        te = [sample_agent(rng, cls) for _ in range(40)]
+        samples[cls] = ([a.prompt for a in tr], [a.true_cost for a in tr])
+        test[cls] = ([a.prompt for a in te],
+                     np.array([a.true_cost for a in te]))
+    return samples, test
+
+
+def median_ms(fn, n: int = 200) -> float:
+    """Median host wall of ``fn()`` over n calls (each returns host data,
+    so it has waited for the card)."""
+    fn()
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def predictor_on_card(torch) -> None:
+    """Phase 10 (a): the paper's per-class MLP predictor fitted on the card
+    in Table 1's setting, held to its accuracy bound; one Adam step card
+    against CPU; the heavy pooled baseline trained on the card."""
+    import numpy as np
+
+    from repro_torch.predictor import (
+        AgentCostPredictor,
+        HeavyPredictor,
+        relative_error,
+    )
+    from repro_torch.predictor import mlp as pmlp
+    from repro_torch.workloads import sample_agent
+
+    samples, test = table1_samples(sample_agent)
+    card = AgentCostPredictor(max_features=PREDICTOR_FEATURES)
+    card.fit(samples)
+    cpu = AgentCostPredictor(max_features=PREDICTOR_FEATURES, device="cpu")
+    cpu.fit(samples)
+    for cls, (prompts, truth) in test.items():
+        pred = card.predict_batch(cls, prompts)
+        err = relative_error(pred, truth)
+        gap = float(np.max(np.abs(pred - cpu.predict_batch(cls, prompts))
+                           / cpu.predict_batch(cls, prompts)))
+        lat = median_ms(lambda: card.predict(cls, prompts[0]))
+        log(f"  MLP {cls}: fit {card.models[cls].train_time_s:.3f} s on the "
+            f"card ({cpu.models[cls].train_time_s:.3f} s on the CPU); "
+            f"held-out relative error {err:.2f} % (bound "
+            f"{PREDICTOR_ERR_BOUND} %); predict(cls, prompt) median "
+            f"{lat:.3f} ms; card against CPU predictions max rel "
+            f"{gap:.3g} (from the same initial draws; logged, as Adam's "
+            "eps magnifies ulps)")
+        if not err < PREDICTOR_ERR_BOUND:
+            raise AssertionError(f"{cls}: relative error {err} %")
+
+    # one Adam step from the same parameters and data, card against CPU
+    gen = torch.Generator().manual_seed(0)
+    params = pmlp.init_mlp_params(gen, 65, [65, 32, 16])
+    x = torch.randn(80, 65, generator=gen)
+    y = torch.randn(80, generator=gen)
+    zeros = [{k: torch.zeros_like(t) for k, t in lay.items()}
+             for lay in params]
+    got = pmlp._adam_step(to_device(params, "cuda"),
+                          (to_device(zeros, "cuda"),) * 2,
+                          x.cuda(), y.cuda(), 1, 3e-3, 3e-4)
+    want = pmlp._adam_step(params, (zeros, zeros), x, y, 1, 3e-3, 3e-4)
+    err = max((a.cpu() - b).abs().max().item()
+              for ga, gb in zip(got[0] + got[1][0] + got[1][1],
+                                want[0] + want[1][0] + want[1][1])
+              for a, b in zip(ga.values(), gb.values()))
+    log(f"  MLP _adam_step card against CPU: max |d| {err:.3g} (tolerance "
+        "1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"the Adam step differs by {err}")
+
+    prompts = [p for cls in PREDICTOR_CLASSES for p in samples[cls][0]]
+    costs = [c for cls in PREDICTOR_CLASSES for c in samples[cls][1]]
+    t = time.perf_counter()
+    heavy = HeavyPredictor.train(prompts, costs)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    held = [p for cls in PREDICTOR_CLASSES for p in test[cls][0]]
+    truth = np.concatenate([test[cls][1] for cls in PREDICTOR_CLASSES])
+    pred = heavy.predict_batch(held)
+    if not (pred.shape == truth.shape and np.isfinite(pred).all()):
+        raise AssertionError("the heavy predictor's costs are not finite")
+    lat = median_ms(lambda: heavy.predict(held[0]))
+    log(f"  heavy (pooled, {len(prompts)} prompts, 30 epochs): fit "
+        f"{fit_s:.2f} s on the card; held-out relative error "
+        f"{relative_error(pred, truth):.2f} %; predict(prompt) median "
+        f"{lat:.3f} ms")
+
+
+def train_reduced(torch, pkg, ops) -> None:
+    """Phase 10 (b): reduced granite-3-2b at float32 (TF32 off, as phase 1
+    sets it): one train step card against CPU, the 80-step learning check,
+    and a checkpoint written on the card restored on the CPU."""
+    import numpy as np
+
+    from repro_torch.training import (
+        AdamWConfig,
+        DataConfig,
+        data_iterator,
+        init_adamw,
+        make_train_step,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from repro_torch.tree import tree_leaves
+
+    cfg = pkg["get_config"]("granite-3-2b").reduced()
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=80)
+    batch = next(data_iterator(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                          global_batch=8, order=1)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = pkg["Model"](cfg, device=dev)
+        params = to_device(pkg["Model"](cfg, device="cpu").init(seed=0), dev)
+        opt = init_adamw(params)
+        params, opt, met = make_train_step(model, opt_cfg)(
+            params, opt, {"tokens": torch.as_tensor(batch["tokens"],
+                                                    device=dev)})
+        out[dev] = (params, opt, {k: float(v) for k, v in met.items()})
+    (pg, og, mg), (pc, oc, mc) = out["cuda"], out["cpu"]
+    for k in ("loss", "grad_norm", "lr"):
+        if not abs(mg[k] - mc[k]) <= TRAIN_TOL * max(1.0, abs(mc[k])):
+            raise AssertionError(f"train step {k}: card {mg[k]} CPU {mc[k]}")
+    # a first Adam step moves p by lr * g / (|g| + 1e-8): where the clipped
+    # gradient (m / (1 - b1)) is nonzero and below 1e-6, an ulp of g moves
+    # the step; those elements (under 1 % of all) are held to 2 lr, the
+    # rest to TRAIN_TOL
+    worst = tiny_worst = 0.0
+    n_tiny = n_all = 0
+    for a, b, m in zip(tree_leaves(pg), tree_leaves(pc),
+                       tree_leaves(oc.m)):
+        g = (m / (1 - opt_cfg.b1)).abs()
+        tiny = (g > 0) & (g < 1e-6)
+        gap = (a.cpu() - b).abs()
+        worst = max(worst, gap[~tiny].max().item())
+        if tiny.any():
+            tiny_worst = max(tiny_worst, gap[tiny].max().item())
+        n_tiny, n_all = n_tiny + int(tiny.sum()), n_all + g.numel()
+    log(f"  reduced {cfg.name} f32, one train step card against CPU: loss "
+        f"{mg['loss']:.6f} / {mc['loss']:.6f}, grad norm "
+        f"{mg['grad_norm']:.6f} / {mc['grad_norm']:.6f}, parameters max "
+        f"|d| {worst:.3g} (tolerance {TRAIN_TOL}); {n_tiny} of {n_all} "
+        f"elements with 0 < |g| < 1e-6, max |d| {tiny_worst:.3g} (bound "
+        f"{2 * mc['lr']:.3g})")
+    if not (worst <= TRAIN_TOL and tiny_worst <= 2 * mc["lr"]
+            and n_tiny < 1e-2 * n_all):
+        raise AssertionError("the train step differs between card and CPU")
+
+    # tests/test_training.py's learning check, on the card
+    cfg = pkg["get_config"]("granite-3-2b").reduced(vocab=128, n_layers=2)
+    model = pkg["Model"](cfg)
+    params = model.init(seed=0)
+    it = data_iterator(DataConfig(vocab=128, seq_len=64, global_batch=8,
+                                  seed=0, order=1, temperature=0.2))
+    step = make_train_step(model, AdamWConfig(lr=3e-3, warmup_steps=5,
+                                              total_steps=200,
+                                              weight_decay=0.0))
+    opt = init_adamw(params)
+    losses = []
+    t = time.perf_counter()
+    for _ in range(80):
+        params, opt, met = step(params, opt, {"tokens": torch.as_tensor(
+            next(it)["tokens"], device="cuda")})
+        losses.append(float(met["loss"]))
+    bound = 0.75 * float(np.log(128))
+    log(f"  learning: 80 steps in {time.perf_counter() - t:.2f} s; loss "
+        f"{losses[0]:.3f} -> min of the last 5 {min(losses[-5:]):.3f} "
+        f"(bound 0.75 ln 128 = {bound:.3f})")
+    if not (losses[-1] < losses[0] and min(losses[-5:]) < bound):
+        raise AssertionError(f"no learning: {losses[-5:]}")
+
+    path = ROOT / "build" / "chip_smoke" / "train.ckpt"
+    tree = {"params": params, "opt": opt}
+    save_checkpoint(str(path), tree, step=80)
+    cpu_tree = {"params": to_device(params, "cpu"),
+                "opt": type(opt)(opt.step.cpu(), to_device(opt.m, "cpu"),
+                                 to_device(opt.v, "cpu"))}
+    restored, n = restore_checkpoint(str(path), cpu_tree)
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(
+        tree_leaves(restored["params"]) + tree_leaves(restored["opt"].m)
+        + tree_leaves(restored["opt"].v) + [restored["opt"].step],
+        tree_leaves(params) + tree_leaves(opt.m) + tree_leaves(opt.v)
+        + [opt.step]))
+    log(f"  checkpoint written on the card ({path.stat().st_size} bytes) "
+        f"restored on the CPU: step {n}, every leaf equal: {same}")
+    path.unlink()
+    if not (same and n == 80):
+        raise AssertionError("the checkpoint did not round-trip")
+
+
+def train_full_width(torch, ops, card: str) -> None:
+    """Phase 10 (c): granite-3-2b at full width, bf16, through the training
+    launcher's code path (``--no-reduced``); every loss and grad norm
+    finite and no kernel launched."""
+    import math
+
+    from repro_torch.launch import train as launcher
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    history = launcher.run(TRAIN_FULL_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {"paged_attention": ops.paged_gqa_decode.launches,
+              "flash_attention": ops.flash_prefill.launches,
+              "mlstm_chunk": ops.mlstm_chunk.launches}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    steps = [h["elapsed_s"] for h in history]
+    per_step = [b - a for a, b in zip(steps, steps[1:])]
+    log(f"  granite-3-2b full width ({' '.join(TRAIN_FULL_ARGS)}): "
+        f"{len(history)} steps in {wall:.1f} s (model init included); "
+        f"first step {steps[0]:.2f} s, later steps median "
+        f"{statistics.median(per_step):.3f} s; peak memory {peak:.2f} GiB "
+        f"({card})")
+    log("  loss curve: " + " ".join(f"{h['loss']:.4f}" for h in history))
+    log("  grad norms: " + " ".join(f"{h['grad_norm']:.3f}" for h in history))
+    log(f"  kernel launches while training: {counts}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in history):
+        raise AssertionError("a full-width loss or grad norm is not finite")
+    if any(counts.values()):
+        raise AssertionError(f"training launched kernels: {counts}")
+
+
 def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     """The before side of a comparison made in one chip call: times the
     kernels of another tree's port (an earlier commit unpacked beside this
@@ -2258,6 +2569,7 @@ def main(argv: list) -> int:
                ("flash_attention", check_flash(ops, ref, torch, gen,
                                                flash_path)))}
     err["mlstm_chunk"] = check_mlstm(ops, ref, torch, gen, mlstm)
+    check_grad_guard(ops, torch)
     timing = {"paged_attention": time_paged(ops, ref, torch, gen),
               "flash_attention": time_flash(ops, ref, torch, gen),
               "mlstm_chunk": time_mlstm(ops, ref, torch, gen, floor=floor)}
@@ -2332,6 +2644,15 @@ def main(argv: list) -> int:
     for counts in zoo:
         for name, n in counts.items():
             launches[name] += n
+
+    clock.start("10. the agent cost predictor and training on the card")
+    log("  (a) the per-class MLP predictor and the heavy baseline")
+    predictor_on_card(torch)
+    log("  (b) reduced granite-3-2b at float32: a step card against CPU, "
+        "learning, a checkpoint")
+    train_reduced(torch, pkg, ops)
+    log("  (c) full-width granite-3-2b at bf16 through the training launcher")
+    train_full_width(torch, ops, card)
     clock.start(None)
 
     sources = {

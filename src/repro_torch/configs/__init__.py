@@ -26,6 +26,7 @@ _MODULES = {
     "llama2-7b": "llama2_7b_paper",
 }
 
+ASSIGNED_ARCHS = [k for k in _MODULES if k != "llama2-7b"]
 ALL_ARCHS = list(_MODULES)
 
 
@@ -47,16 +48,26 @@ def get_config(arch: str, *, shape: str | None = None) -> ModelConfig:
     if shape == "long_500k":
         over = getattr(mod, "LONG_CONTEXT_OVERRIDES", {})
         if over is None:
-            raise ValueError(f"{arch} skips long_500k")
+            raise ValueError(
+                f"{arch} skips long_500k (see DESIGN.md §4 skip notes)"
+            )
         if over:
             cfg = dataclasses.replace(cfg, **over)
     return cfg
 
 
+def supports_shape(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return getattr(_module(arch), "LONG_CONTEXT_OVERRIDES", {}) is not None
+    return True
+
+
 __all__ = [
     "ALL_ARCHS",
+    "ASSIGNED_ARCHS",
     "INPUT_SHAPES",
     "InputShape",
     "ModelConfig",
     "get_config",
+    "supports_shape",
 ]

@@ -2,8 +2,13 @@
 
 Each wrapper takes its plain PyTorch version (``ref.py``) for tensors on the
 CPU, and only then.  For CUDA tensors it launches its kernel or raises;
-there is no fallback.  Each wrapper counts its launches in an integer
-attribute (``paged_gqa_decode.launches``, ``flash_prefill.launches``,
+there is no fallback.  No kernel has a backward: the kernels write into
+fresh buffers through ``ctypes``, so their outputs carry no ``grad_fn``,
+and a CUDA call that would need one raises (``refuse_grad``).  The CPU
+branch's plain versions stay differentiable.  Training runs the plain
+attention and mLSTM by choice, as the JAX package trains on no Pallas
+kernel.  Each wrapper counts its launches in an integer attribute
+(``paged_gqa_decode.launches``, ``flash_prefill.launches``,
 ``mlstm_chunk.launches``), so a run can show that its main path went
 through the kernels.  The counts are raised under a lock: a replicated
 fleet advances its engines on several threads, and the ctypes calls
@@ -26,6 +31,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mlstm_chunk as _mlstm
@@ -111,6 +118,19 @@ def _build_and_load() -> dict:
     return fns
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and a floating input requires grad: the
+    kernel behind ``name`` has no backward, and its output would silently
+    cut the graph."""
+    if torch.is_grad_enabled() and any(
+            t.is_floating_point() and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            "requires grad; call it under torch.no_grad(), or train on the "
+            "plain version (layers.attention_any, ref.mlstm_chunk_ref)")
+
+
 def paged_gqa_decode(
     q,              # (B, nh, hd) one query token per sequence
     k_pages,        # (P, block_size, n_kv, hd)
@@ -129,6 +149,7 @@ def paged_gqa_decode(
         out = paged_attention_ref(qg * hd ** -0.5, k_pages, v_pages,
                                   block_tables, lengths)
     else:
+        refuse_grad("paged_gqa_decode", q, k_pages, v_pages)
         out = _paged.paged_attention(
             kernel_library()["paged_attention"], qg, k_pages, v_pages,
             block_tables, lengths, block_size=block_size, scale=hd ** -0.5,
@@ -162,6 +183,7 @@ def flash_prefill(
     if q.device.type == "cpu":
         out = flash_attention_ref(qt * hd ** -0.5, kt, vt, window=window)
     else:
+        refuse_grad("flash_prefill", q, k, v)
         out = _flash.flash_attention(
             kernel_library()["flash_attention"], qt, kt, vt, window=window,
             scale=hd ** -0.5,
@@ -199,6 +221,8 @@ def mlstm_chunk(
                          f"[1, {_mlstm.MAX_CHUNK}]")
     if q.device.type == "cpu":
         return mlstm_chunk_ref(q, k, v, i_raw, log_f, state, chunk=chunk)
+    refuse_grad("mlstm_chunk", q, k, v, i_raw, log_f,
+                *(state if state is not None else ()))
     out = _mlstm.mlstm_chunk(
         kernel_library()["mlstm_chunk"], q, k, v, i_raw.float(),
         log_f.float(), state, chunk=chunk,

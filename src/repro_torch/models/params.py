@@ -1,9 +1,11 @@
 """Parameter bridge: the JAX package's parameter tree -> the port's tensors.
 
 Torch cannot reproduce JAX's PRNG, so the parity tests build parameters
-with the JAX ``Model.init``, pull them to numpy, and hand them here.  The
-port keeps the JAX pytree's layout key for key (layer-stacked ``(L, ...)``
-leaves included), so the bridge is a copy.
+with the JAX ``Model.init`` (or the predictor's inits), pull them to numpy,
+and hand them here.  The port keeps the JAX pytree's layout key for key
+(layer-stacked ``(L, ...)`` leaves and the predictor's lists of layers
+included), so the bridge is a copy.  ``predictor_from_jax`` carries a
+fitted JAX ``AgentCostPredictor`` across whole.
 """
 
 from __future__ import annotations
@@ -12,6 +14,13 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.predictor import (
+    AgentCostPredictor,
+    MlpCostModel,
+    TfidfVectorizer,
+    TrainedClassModel,
+)
 
 #: leaves that ``Model.init`` keeps in float32 whatever the compute dtype:
 #: the norm scales, the MoE router, the xLSTM gate projections, gate
@@ -46,7 +55,7 @@ def _to_tensor(arr, device, dtype: Optional[torch.dtype], path: tuple):
 
 def params_from_jax(tree: Any, device, dtype: Optional[torch.dtype] = None,
                     _path: tuple = ()) -> Any:
-    """Copy a (nested dict) tree of numpy arrays into torch tensors on
+    """Copy a tree (nested dicts and lists) of numpy arrays into torch tensors on
     ``device``.  ``dtype``, when given, is the weights' dtype; the leaves
     that the JAX ``Model.init`` keeps in float32 (``F32_KEYS``,
     ``F32_PATHS``) stay float32.  With ``dtype=None`` every leaf keeps its
@@ -54,4 +63,31 @@ def params_from_jax(tree: Any, device, dtype: Optional[torch.dtype] = None,
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype, _path + (k,))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_jax(v, device, dtype, _path + (i,))
+                for i, v in enumerate(tree)]
     return _to_tensor(tree, device, dtype, _path)
+
+
+def predictor_from_jax(pred, device) -> AgentCostPredictor:
+    """The port's ``AgentCostPredictor`` holding what a fitted JAX one
+    holds: each class's vectorizer (through its ``state_dict()``), its MLP
+    parameters (float32 tensors on ``device``) and statistics, and its
+    training time."""
+    out = AgentCostPredictor(max_features=pred.max_features, device=device)
+    for name, m in pred.models.items():
+        mlp = m.model
+        out.models[name] = TrainedClassModel(
+            vectorizer=TfidfVectorizer.from_state_dict(
+                m.vectorizer.state_dict()),
+            model=MlpCostModel(
+                params=params_from_jax(mlp.params, out.device),
+                x_mean=np.asarray(mlp.x_mean, np.float32),
+                x_std=np.asarray(mlp.x_std, np.float32),
+                y_mean=float(mlp.y_mean),
+                y_lo=float(mlp.y_lo),
+                y_hi=float(mlp.y_hi),
+            ),
+            train_time_s=m.train_time_s,
+        )
+    return out

@@ -14,9 +14,11 @@ recurrence (``mamba2_forward``, its oracle) for decode.  Its state stays
 float32; y is cast to x's dtype before the gated RMSNorm, as in JAX.
 
 The chunkwise mLSTM of prefill runs through ``ops.mlstm_chunk``: the CUDA
-kernel on the card, its plain version on the CPU.  The projections and
-gates around it are plain matrix products, as the JAX package leaves them
-to XLA.  The per-step forms (``mlstm_forward``, ``mlstm_decode``) and the
+kernel on the card, its plain version on the CPU.  Training runs the plain
+chunkwise mLSTM (``mlstm_forward_train``, ``ref.mlstm_chunk_ref``) on every
+device, as the JAX package trains on its jnp form: the kernel has no
+backward.  The projections and gates around it are plain matrix products,
+as the JAX package leaves them to XLA.  The per-step forms (``mlstm_forward``, ``mlstm_decode``) and the
 whole sLSTM are plain PyTorch: no Pallas kernel computes them.
 ``slstm_forward`` projects the whole input once and then loops over the
 recurrent step token by token, as the JAX ``lax.scan`` does.
@@ -24,13 +26,14 @@ recurrent step token by token, as the JAX ``lax.scan`` does.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import mlstm_chunk
-from repro_torch.kernels.ref import empty_mlstm_state
+from repro_torch.kernels.ref import empty_mlstm_state, mlstm_chunk_ref
 from repro_torch.models.layers import stacked_normal
 
 #: tokens per chunk of the chunkwise mLSTM (the kernel's largest tile); any
@@ -192,9 +195,7 @@ def mamba2_forward_chunked(p, x, state=None, conv_state=None,
         state = torch.zeros((b, h, pdim, n), dtype=torch.float32,
                             device=x.device)
 
-    c = s // max(1, s // min(chunk, s))
-    while s % c:
-        c += 1
+    c = divisor_chunk(s, chunk)
     nc = s // c
 
     ug = (xs.float() * dt[..., None]).reshape(b, nc, c, h, pdim)
@@ -271,6 +272,15 @@ def init_mlstm(gen: torch.Generator, d_model: int, n_heads: int,
     }
 
 
+def divisor_chunk(s: int, chunk: int) -> int:
+    """JAX's chunk rule: ``s // max(1, s // min(chunk, s))``, raised until
+    it divides S."""
+    c = s // max(1, s // min(chunk, s))
+    while s % c:
+        c += 1
+    return c
+
+
 def _mlstm_gates(p, x):
     """x: (B,S,D) -> i_raw, log_f: (B,S,H) float32."""
     b, s, d = x.shape
@@ -319,6 +329,19 @@ def mlstm_forward(p, x, state=None):
     return _out(h, p["wo"]), state
 
 
+def _mlstm_chunked(p, x, state, chunk_fn):
+    """Projections, gates, ``chunk_fn`` (the chunkwise mLSTM over
+    (B, H, S, ...) tensors), head norm and output projection."""
+    q, k, v = (_proj(x, p[w]) for w in ("wq", "wk", "wv"))
+    i_raw, log_f = _mlstm_gates(p, x)
+    h, state = chunk_fn(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        i_raw.transpose(1, 2), log_f.transpose(1, 2), state,
+    )
+    h = rms_head_norm(h.transpose(1, 2), p["norm_w"])
+    return _out(h, p["wo"]), state
+
+
 def mlstm_forward_chunked(p, x, state=None, chunk: int = MLSTM_CHUNK):
     """Chunkwise-parallel mLSTM from ``state`` (None: empty) through
     ``ops.mlstm_chunk``; returns (y (B,S,D), final_state).
@@ -327,14 +350,18 @@ def mlstm_forward_chunked(p, x, state=None, chunk: int = MLSTM_CHUNK):
     JAX package picks a chunk that divides S, the port masks its last chunk,
     so the two agree to rounding, not bit for bit.
     """
-    q, k, v = (_proj(x, p[w]) for w in ("wq", "wk", "wv"))
-    i_raw, log_f = _mlstm_gates(p, x)
-    h, state = mlstm_chunk(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        i_raw.transpose(1, 2), log_f.transpose(1, 2), state, chunk=chunk,
-    )
-    h = rms_head_norm(h.transpose(1, 2), p["norm_w"])
-    return _out(h, p["wo"]), state
+    return _mlstm_chunked(p, x, state,
+                          functools.partial(mlstm_chunk, chunk=chunk))
+
+
+def mlstm_forward_train(p, x, chunk: int = 256):
+    """The training form of the JAX package's ``mlstm_forward_chunked``:
+    the plain chunkwise mLSTM (``mlstm_chunk_ref``, differentiable) from
+    the empty state, in chunks of JAX's rule (``divisor_chunk``, 256 by
+    default).  Returns (y (B,S,D), final_state)."""
+    c = divisor_chunk(x.shape[1], chunk)
+    return _mlstm_chunked(p, x, None,
+                          functools.partial(mlstm_chunk_ref, chunk=c))
 
 
 def mlstm_decode(p, x1, state):

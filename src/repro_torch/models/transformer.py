@@ -69,6 +69,15 @@ plain ``gqa_attention`` (no Pallas kernel computes it), the decoder's
 causal self-attention through flash in prefill and paged decode in decode
 (``dense_block_decode_selfonly``), and cross-attention on the plain
 attention over ``cross_k``/``cross_v`` ``(L, B, F, n_kv, hd)``, as JAX.
+
+Training (``hidden``, ``forward``) runs no kernel: the JAX package trains
+on its plain attention (``attention_any``) and its jnp chunkwise mLSTM, as
+no Pallas kernel has a backward, and so does the port
+(``dense_block_train(attention="plain")``, ``ssm.mlstm_forward_train``).
+The kernels' wrappers raise on the card where an input requires grad.
+``jax.checkpoint`` (remat) becomes ``torch.utils.checkpoint`` without
+reentrance.  The serving entry points run under ``torch.no_grad()``, as
+JAX's serving computes no gradients.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ from typing import Any, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flash_prefill, paged_gqa_decode
@@ -314,23 +324,38 @@ def _padded_queries(q, k, v, att, lens, window: int):
 
 
 def dense_block_train(p, x, positions, cfg: ModelConfig, attn_mask_lens=None,
-                      padded_rows: bool = False):
-    """Full-sequence causal block (prefill compute).
+                      padded_rows: bool = False, attention: str = "flash"):
+    """Full-sequence causal block (training / prefill compute).
 
     Returns (x, (k, v, moe_aux)) so prefill can collect the cache.
-    ``positions`` must be ``arange(S)`` per row, as every caller passes.
+    ``attention="flash"`` (prefill) runs ``flash_prefill``; ``positions``
+    must then be ``arange(S)`` per row, as every caller passes, and
     ``attn_mask_lens`` needs no mask for the real rows (see the module
     doc); ``padded_rows=True`` also makes the padded rows JAX's
     (``_padded_queries``), for the hybrid, whose padded rows run on
-    through the Mamba2 state.
+    through the Mamba2 state.  ``attention="plain"`` (training) runs JAX's
+    ``attention_any`` with its ``lens`` mask, differentiable on every
+    device.
     """
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attention_qkv(p["attn"], h, positions, cfg.rope_theta,
                             cfg.use_rope)
-    att = _prefill_attention(q, k, v, cfg.sliding_window)
-    if padded_rows and attn_mask_lens is not None:
-        att = _padded_queries(q, k, v, att, attn_mask_lens,
-                              cfg.sliding_window)
+    if attention == "flash":
+        att = _prefill_attention(q, k, v, cfg.sliding_window)
+        if padded_rows and attn_mask_lens is not None:
+            att = _padded_queries(q, k, v, att, attn_mask_lens,
+                                  cfg.sliding_window)
+    elif attention == "plain":
+        kv_valid = None
+        if attn_mask_lens is not None:
+            t = x.shape[1]
+            kv_valid = (torch.arange(t, device=x.device)[None, :]
+                        < attn_mask_lens[:, None])
+        att = attention_any(q, k, v, window=cfg.sliding_window,
+                            q_positions=positions, kv_positions=positions,
+                            kv_valid=kv_valid)
+    else:
+        raise ValueError(f"attention {attention!r} is not 'flash' or 'plain'")
     x = x + attention_out(p["attn"], att)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = block_ffn(p, h2, cfg)
@@ -475,6 +500,37 @@ def xlstm_pair(lp, x, cfg: ModelConfig, m_state, s_state, *, decode: bool):
     return x + y2, (*m_state, *s_state)
 
 
+def stack_layers(stack) -> list:
+    """Per-layer views of a layer-stacked tree (nested dicts of ``(L, ...)``
+    tensors): entry l holds every leaf's ``[l]``.  Each leaf is split by
+    one ``unbind``, whose backward stacks the layers' gradients once (a
+    view per layer by indexing would give each layer's gradient its own
+    zero-filled tensor of the whole stack's size)."""
+    def split(tree):
+        if isinstance(tree, dict):
+            return {k: split(v) for k, v in tree.items()}
+        return tree.unbind(0)
+
+    def pick(tree, l):
+        if isinstance(tree, dict):
+            return {k: pick(v, l) for k, v in tree.items()}
+        return tree[l]
+
+    parts = split(stack)
+    leaf = parts
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [pick(parts, l) for l in range(len(leaf))]
+
+
+def _remat(fn, remat: bool):
+    """``fn`` recomputed in the backward pass where ``remat`` (JAX:
+    ``jax.checkpoint``)."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def _gather_last(x, lens):
     """x: (B,S,D); lens: (B,) true lengths -> (B,1,D) at position lens-1."""
     b = x.shape[0]
@@ -488,8 +544,8 @@ def _gather_last(x, lens):
 
 
 class Model:
-    """Serving entry points of every family of the JAX ``Model`` on one
-    device.
+    """Training and serving entry points of every family of the JAX
+    ``Model`` on one device.
 
     ``device=None`` means ``cuda`` and raises when there is none; tests pass
     ``device="cpu"``.  ``debug_checks=True`` asserts the slot-contiguity
@@ -553,7 +609,9 @@ class Model:
 
     def layer_params(self, params, key: Optional[str] = None) -> list:
         """Per-layer views of the family's main stack, kept while the same
-        parameter dict is passed in: ``params["blocks"]``, per-pair views
+        parameter dict is passed in (serving only: training indexes the
+        stacks anew, so that its views carry the graph): ``params["blocks"]``,
+        per-pair views
         of ``params["xlstm_pairs"]`` (ssm), of ``params["dec_blocks"]``
         (encdec; ``key="enc_blocks"`` gives the encoder's), or, for the
         hybrid, per super-block lists of per-layer views of
@@ -567,20 +625,9 @@ class Model:
         # threads, and each entry is replaced whole, never mutated
         views = self._views.get(key)
         if views is None or views[0] is not stack:
-            def index(tree, l):
-                if isinstance(tree, dict):
-                    return {k: index(v, l) for k, v in tree.items()}
-                return tree[l]
-
-            def per_layer(tree):
-                leaf = tree
-                while isinstance(leaf, dict):
-                    leaf = next(iter(leaf.values()))
-                return [index(tree, l) for l in range(leaf.shape[0])]
-
-            layers = per_layer(stack)
+            layers = stack_layers(stack)
             if key == "super_blocks":
-                layers = [per_layer(group) for group in layers]
+                layers = [stack_layers(group) for group in layers]
             views = (stack, layers)
             self._views[key] = views
         return views[1]
@@ -602,6 +649,128 @@ class Model:
     def _logits(self, params, x):
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return x @ self.head_matrix(params)
+
+    # ------------------------------------------------------------ train
+
+    def hidden(self, params, batch: dict):
+        """Training forward up to the FINAL NORM (no vocab projection).
+
+        Returns (normed hidden states over the token positions, moe aux).
+        The training loss projects to the vocab in chunks
+        (``training.chunked_lm_loss``).  ``batch``: ``tokens`` (B,S),
+        ``embeds`` for the vlm's image (prepended) and the encdec's audio
+        frames."""
+        cfg = self.cfg
+        _check_family(cfg)
+        tokens = batch["tokens"]
+        b, s_tok = tokens.shape
+        dev = tokens.device
+
+        def arange_rows(n):
+            return torch.arange(n, device=dev)[None].expand(b, n)
+
+        if cfg.kind == "encdec":
+            enc = batch["embeds"].to(_dtype(cfg))
+            enc = enc + params["enc_pos"][None, : enc.shape[1]]
+            enc = self._run_encoder(params, enc,
+                                    stack_layers(params["enc_blocks"]))
+            positions = arange_rows(s_tok)
+            x = self._embed(params, tokens, positions)
+            x, aux = self._run_decoder_train(params, x, positions, enc)
+        elif cfg.kind == "vlm" and "embeds" in batch:
+            img = batch["embeds"].to(_dtype(cfg))
+            n_img = img.shape[1]
+            positions = arange_rows(n_img + s_tok)
+            x = torch.cat([img, params["embed"][tokens.long()]], dim=1)
+            x, aux = self._run_stack_train(params, x, positions)
+            x = x[:, n_img:]
+        else:
+            positions = arange_rows(s_tok)
+            x = self._embed(params, tokens, positions)
+            x, aux = self._run_stack_train(params, x, positions)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x, aux
+
+    def forward(self, params, batch: dict):
+        """Training forward returning full logits (small configs only)."""
+        x, aux = self.hidden(params, batch)
+        return x @ self.head_matrix(params), aux
+
+    def _run_stack_train(self, params, x, positions, remat: bool = True):
+        """The family's layer stack over the whole sequence, each layer
+        (each super block, for the hybrid) recomputed in the backward pass
+        where ``remat``.  Returns (x, summed moe aux)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.kind in ("dense", "moe", "vlm"):
+            def body(h, lp):
+                h, (_, _, a) = dense_block_train(lp, h, positions, cfg,
+                                                 attention="plain")
+                return h, a
+
+            body = _remat(body, remat)
+            for lp in stack_layers(params["blocks"]):
+                x, a = body(x, lp)
+                aux = aux + a
+            return x, aux
+        if cfg.kind == "ssm":
+            def body(h, lp):
+                hm = rms_norm(h, lp["ln_m"], cfg.norm_eps)
+                h = h + ssm.mlstm_forward_train(lp["mlstm"], hm)[0]
+                hs = rms_norm(h, lp["ln_s"], cfg.norm_eps)
+                return h + ssm.slstm_forward(lp["slstm"], hs)[0]
+
+            body = _remat(body, remat)
+            for lp in stack_layers(params["xlstm_pairs"]):
+                x = body(x, lp)
+            return x, aux
+        if cfg.kind == "hybrid":
+            shared = params["shared_attn"]
+
+            def mamba_one(hc, lp):
+                hin = rms_norm(hc, lp["ln"], cfg.norm_eps)
+                return hc + ssm.mamba2_forward_chunked(lp["mamba"], hin)[0]
+
+            # JAX checkpoints each Mamba2 layer whatever ``remat`` says
+            mamba_one = _remat(mamba_one, True)
+
+            def body(h, group):
+                for lp in stack_layers(group):
+                    h = mamba_one(h, lp)
+                return dense_block_train(shared, h, positions, cfg,
+                                         attention="plain")[0]
+
+            body = _remat(body, remat)
+            for group in stack_layers(params["super_blocks"]):
+                x = body(x, group)
+            return x, aux
+        raise ValueError(cfg.kind)
+
+    def _run_decoder_train(self, params, x, positions, enc):
+        """The encoder-decoder's decoder over the whole prompt: causal
+        self-attention and cross-attention over the encoder output ``enc``,
+        both on the plain attention, as JAX trains them."""
+        cfg = self.cfg
+        b, f = enc.shape[0], enc.shape[1]
+        enc_pos = torch.arange(f, device=x.device)[None].expand(b, f)
+        q_pos = torch.full_like(positions, f + 1)
+        for lp in stack_layers(params["dec_blocks"]):
+            hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = attention_qkv(lp["attn"], hn, positions,
+                                    cfg.rope_theta, cfg.use_rope)
+            att = attention_any(q, k, v, q_positions=positions,
+                                kv_positions=positions)
+            x = x + attention_out(lp["attn"], att)
+            hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+            qx = project_heads(hx, lp["xattn"]["wq"])
+            kx = project_heads(enc, lp["xattn"]["wk"])
+            vx = project_heads(enc, lp["xattn"]["wv"])
+            xat = attention_any(qx, kx, vx, q_positions=q_pos,
+                                kv_positions=enc_pos)
+            x = x + attention_out(lp["xattn"], xat)
+            h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + gated_mlp(lp["mlp"], h2)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     # ------------------------------------------------------------ serve
 
@@ -659,6 +828,7 @@ class Model:
                 dtype=_dtype(cfg), device=dev)
         return cache
 
+    @torch.no_grad()
     def prefill(self, params, batch: dict, cache_len: int):
         """Process the full prompt; returns (last-position logits, cache).
 
@@ -711,17 +881,18 @@ class Model:
         logits = self._logits(params, _gather_last(x, lens))
         return logits, cache
 
-    def _run_encoder(self, params, enc):
+    def _run_encoder(self, params, enc, layers):
         """The bidirectional encoder over frame embeddings (B, F, D) on the
         plain attention (a query position past every frame, so that every
         key passes the causal comparison, as JAX builds it), then its
-        final norm."""
+        final norm.  ``layers``: the per-layer views of
+        ``params["enc_blocks"]``."""
         cfg = self.cfg
         b, f, _ = enc.shape
         positions = torch.arange(f, device=enc.device)[None].expand(b, f)
         q_pos = torch.full((b, f), f + 1, dtype=torch.int32,
                            device=enc.device)
-        for lp in self.layer_params(params, "enc_blocks"):
+        for lp in layers:
             hn = rms_norm(enc, lp["ln1"], cfg.norm_eps)
             q, k, v = attention_qkv(lp["attn"], hn, positions,
                                     cfg.rope_theta, False)
@@ -741,7 +912,8 @@ class Model:
         cfg = self.cfg
         enc = frames.to(_dtype(cfg))
         f = enc.shape[1]
-        enc = self._run_encoder(params, enc + params["enc_pos"][None, :f])
+        enc = self._run_encoder(params, enc + params["enc_pos"][None, :f],
+                                self.layer_params(params, "enc_blocks"))
         b = x.shape[0]
         enc_pos = torch.arange(f, device=x.device)[None].expand(b, f)
         q_pos = torch.full_like(positions, f + 1)
@@ -791,6 +963,7 @@ class Model:
             vs.append(v)
         return x, ks, vs
 
+    @torch.no_grad()
     def prefill_chunked(self, params, batch: dict, cache_len: int,
                         chunk: int):
         """Chunked prefill: process the prompt ``chunk`` tokens at a time.
@@ -841,6 +1014,7 @@ class Model:
         logits = self._logits(params, _gather_last(x, lens))
         return logits, cache
 
+    @torch.no_grad()
     def prefill_slice(self, params, cache: dict, tokens, slot: int,
                       start: int, total: int):
         """One bounded prefill slice of a SINGLE batch slot against a live
@@ -935,6 +1109,7 @@ class Model:
         cache["kv_pos"][:, :, rows] = kvp
         return cache
 
+    @torch.no_grad()
     def decode(self, params, cache: dict, tokens, pos):
         """One decode step.  tokens: (B,1) int; pos: (B,) positions of the
         new token.  Returns (logits (B,1,V), cache updated in place)."""

@@ -4,7 +4,7 @@
 frozen pre-rewrite oracle, ``repro.sim.reference.ReferenceClusterSim``, is
 not copied here: the port's sim is held against the JAX package's
 ``ClusterSim`` by its tests, and the frozen oracle waits with the frozen
-engine oracle (ROADMAP §1 item 11).
+engine oracle (ROADMAP §1 item 4).
 """
 
 from repro_torch.sim.cluster import ClusterSim, SimAgent, SimResult

@@ -6,7 +6,8 @@
   ``whisper_tiny``, ``llava_next_34b``, ``zamba2_2_7b``) equals the JAX one
   field by field, its ``LONG_CONTEXT_OVERRIDES`` too (whisper skips
   long_500k in both), and the registry holds every arch of the reference
-  under its id, in its order.
+  under its id, in its order; ``ASSIGNED_ARCHS``, ``supports_shape`` and
+  the long_500k refusal's message equal the JAX registry's.
 * Reduced llama2-7b, llama3.2-3b, starcoder2-7b and h2o-danube-1.8b at
   float32 with bridged parameters, keeping each arch's real ratio of q
   heads to kv heads (1, 3, 9 and 4): prefill and decode logits within
@@ -31,10 +32,13 @@ import pytest
 import torch
 
 from repro.configs import ALL_ARCHS as JAX_ARCHS
+from repro.configs import ASSIGNED_ARCHS as JAX_ASSIGNED
+from repro.configs import INPUT_SHAPES as JAX_SHAPES
 from repro.configs import get_config
+from repro.configs import supports_shape as jax_supports_shape
 from repro.models import Model as JaxModel
 from repro_torch import api
-from repro_torch.configs import ALL_ARCHS
+from repro_torch.configs import ALL_ARCHS, ASSIGNED_ARCHS, supports_shape
 from repro_torch.configs import get_config as torch_get_config
 from repro_torch.models import Model
 from repro_torch.models.params import params_from_jax
@@ -96,6 +100,20 @@ def test_config_equals_jax(arch):
 
 def test_registry_holds_the_reference_ids_in_its_order():
     assert ALL_ARCHS == JAX_ARCHS
+    assert ASSIGNED_ARCHS == JAX_ASSIGNED
+
+
+@pytest.mark.parametrize("arch", JAX_ARCHS)
+def test_supports_shape_and_refusal_equal_jax(arch):
+    for shape in JAX_SHAPES:
+        assert supports_shape(arch, shape) == jax_supports_shape(arch, shape)
+    if jax_supports_shape(arch, "long_500k"):
+        return
+    with pytest.raises(ValueError) as port_err:
+        torch_get_config(arch, shape="long_500k")
+    with pytest.raises(ValueError) as jax_err:
+        get_config(arch, shape="long_500k")
+    assert str(port_err.value) == str(jax_err.value)
 
 
 # ------------------------------------------------------------ model logits

@@ -39,14 +39,26 @@ MODULES = [
     "repro_torch.kvcache",
     "repro_torch.launch",
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
     "repro_torch.models",
     "repro_torch.models.layers",
     "repro_torch.models.params",
     "repro_torch.models.ssm",
     "repro_torch.models.transformer",
+    "repro_torch.predictor",
+    "repro_torch.predictor.heavy",
+    "repro_torch.predictor.mlp",
+    "repro_torch.predictor.service",
+    "repro_torch.predictor.tfidf",
     "repro_torch.sim",
     "repro_torch.sim.cluster",
     "repro_torch.sim.metrics",
+    "repro_torch.training",
+    "repro_torch.training.checkpoint",
+    "repro_torch.training.data",
+    "repro_torch.training.optimizer",
+    "repro_torch.training.train",
+    "repro_torch.tree",
     "repro_torch.workloads",
     "repro_torch.workloads.agents",
     "repro_torch.workloads.arrivals",
@@ -97,6 +109,26 @@ def test_entry_points_raise_without_a_device():
     model = Model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(model, model.init(), make_scheduler("justitia", 4096.0))
+
+
+def test_predictor_and_training_entry_points_raise_without_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import numpy as np
+
+    from repro_torch.launch import train
+    from repro_torch.predictor import (
+        AgentCostPredictor,
+        HeavyPredictor,
+        MlpCostModel,
+    )
+
+    for call in (AgentCostPredictor,
+                 lambda: MlpCostModel.train(np.zeros((4, 2)), np.ones(4)),
+                 lambda: HeavyPredictor.train(["a b"], [1.0]),
+                 lambda: train.run(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
