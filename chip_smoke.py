@@ -144,14 +144,34 @@ Phases, each of which fails the run (exit code 1) on error:
    (``TRAIN_FULL_ARGS``: ``--no-reduced``, batch 8, seq 512, 10 steps):
    every loss and grad norm finite and no kernel launched (training runs
    the plain attention, as the JAX package), the loss curve, the seconds
-   per step and the peak memory logged.
+   per step and the peak memory logged;
+11. the distribution layer on the card: (a) an NCCL process group of one
+   rank and a 1x1 ("data", "model") ``DeviceMesh``; full-width
+   granite-3-2b at bf16 (phase 5's model) through the sharded plans of
+   ``repro_torch.launch.specs`` on real DTensors: the prefill plan for B 8
+   x 448-token prompts at ``cache_len`` 512, then 32 greedy steps of the
+   decode plan, the kernels run on local shards (``local_map``); every
+   greedy token equal to the unsharded ``Model``'s on the same parameters
+   and prompts, the logits within ``SHARDED_LOGIT_TOL``, flash launched
+   40 times and paged decode 40 x 32; (b) ``repro_torch.launch.train``
+   with ``--mesh debug --mesh-shape 1,1`` on that group
+   (``SHARDED_TRAIN_ARGS``: full-width granite-3-2b at bf16, batch 8 x
+   512, 3 steps), each step's loss and grad norm within
+   ``SHARDED_TRAIN_TOL`` of the unsharded launcher's from the same
+   parameters and batches, no kernel launched, the seconds per step and
+   the peak memory logged; the group is destroyed after; (c) in a
+   subprocess started before (a) (host work only, so it runs beside (a)
+   and (b)), ``launch/dryrun.py``'s ``run_pair`` for every assigned arch
+   at ``DRYRUN_ROWS`` (train_4k and decode_32k) on the 16x16 fake mesh at
+   full width, every pair ``ok``; per pair its per-device FLOPs,
+   collective bytes and argument bytes.
 
 Each full-width phase and each phase-7, phase-8 and phase-9 run zeroes the launch
 counts just before it serves and reads them just after; each phase's wall
 time is logged when the next starts.  The last lines are the card's name and power
 limit, one ``{"kernels": ...}`` JSON line (launches summed over phases 5,
-6, 8 and 9; phase 10 launches none; max |d| the larger of the granite and llama2-7b shapes' in
-bfloat16) and, last, ``{"ok": true,
+6, 8, 9 and 11 (a); phases 10 and 11 (b) launch none; max |d| the larger
+of the granite and llama2-7b shapes' in bfloat16) and, last, ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the repository
 beside it, the script exits non-zero and prints no result.
 
@@ -301,6 +321,24 @@ TRAIN_TOL = 1e-4
 #: phase 10's full-width training run, through the launcher's flags
 TRAIN_FULL_ARGS = ["--no-reduced", "--batch", "8", "--seq", "512",
                    "--steps", "10"]
+#: phase 11 (a): the sharded serving run
+SHARDED_SERVE = dict(b=8, s=448, cache_len=512, steps=32)
+#: the logits of the sharded plans against the unsharded model's, bf16: on
+#: a 1x1 mesh every local op is the unsharded one, so they should agree to
+#: the last bit; the bound is one bf16 ulp at the logits' magnitude
+SHARDED_LOGIT_TOL = 3e-2
+#: phase 11 (b): the sharded launcher run (the unsharded run it is held to
+#: drops the mesh flags)
+SHARDED_TRAIN_ARGS = ["--no-reduced", "--batch", "8", "--seq", "512",
+                      "--steps", "3"]
+SHARDED_MESH_ARGS = ["--mesh", "debug", "--mesh-shape", "1,1"]
+#: relative bound on each step's loss and grad norm, sharded against
+#: unsharded: the sharded loss sums its rows per batch shard first, a
+#: float32 reduction order apart
+SHARDED_TRAIN_TOL = 1e-4
+#: phase 11 (c): the dry-run's rows run on the card's host
+DRYRUN_ROWS = ("train_4k", "decode_32k")
+DRYRUN_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -2434,6 +2472,187 @@ def train_full_width(torch, ops, card: str) -> None:
         raise AssertionError(f"training launched kernels: {counts}")
 
 
+def nccl_mesh(torch):
+    """Phase 11's NCCL group of one rank (an in-memory store, no
+    environment needed) and its 1x1 ("data", "model") mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+def sharded_serving(torch, ops, pkg, mesh, card: str) -> dict:
+    """Phase 11 (a): full-width granite-3-2b through the prefill and decode
+    plans on real DTensors, held to the unsharded model; returns the
+    launches of the sharded run."""
+    from repro_torch.launch.specs import build_dryrun, distribute, lower_plan
+
+    cfg = pkg["get_config"]("granite-3-2b")
+    model, params, held = build_full_width(torch, pkg, cfg)
+    b, s = SHARDED_SERVE["b"], SHARDED_SERVE["s"]
+    cache_len, steps = SHARDED_SERVE["cache_len"], SHARDED_SERVE["steps"]
+    batch = family_batch(torch, cfg, b, s, [s] * b, "cuda", seed=11)
+    want_toks, want_logits, _, _ = greedy(torch, model, params, batch,
+                                          cache_len, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    plan = build_dryrun(cfg.name, "prefill_32k", mesh, cfg_override=cfg,
+                        batch_override=b, seq_override=s, params=params,
+                        batch=batch, kernels=True, cache_len=cache_len)
+    logits, cache = lower_plan(plan)
+    got = [logits.full_tensor()]
+    nxt = got[-1][:, 0].argmax(-1).to(torch.int32)[:, None]
+    pos = batch["lens"].clone()
+    dplan = build_dryrun(cfg.name, "decode_32k", mesh, cfg_override=cfg,
+                         batch_override=b, seq_override=cache_len,
+                         params=params, batch={"tokens": nxt, "pos": pos},
+                         kernels=True, cache=cache)
+    toks = [nxt]
+    for i in range(steps):
+        args = () if i == 0 else (
+            dplan.args[0], cache, distribute(nxt, mesh, dplan.in_specs[2]),
+            distribute(pos, mesh, dplan.in_specs[3]))
+        logits, cache = lower_plan(dplan, *args)
+        got.append(logits.full_tensor())
+        nxt = got[-1][:, 0].argmax(-1).to(torch.int32)[:, None]
+        toks.append(nxt)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": ops.paged_gqa_decode.launches,
+                "flash_attention": ops.flash_prefill.launches}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    toks = torch.cat(toks, dim=1)
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(got, want_logits))
+    same = int((toks == want_toks).sum())
+    placements = {k: str(v.placements) for k, v in cache.items()}
+    n = cfg.n_layers
+    log(f"  granite-3-2b, 1x1 mesh: prefill plan B {b} x {s} tokens at "
+        f"cache {cache_len}, then {steps} greedy decode-plan steps in "
+        f"{wall:.3f} s ({card}); peak memory {peak:.2f} GiB; cache layout "
+        f"{placements}")
+    log(f"  against the unsharded Model: {same} of {toks.numel()} greedy "
+        f"tokens equal, logits max |d| {err:.3g} (bound "
+        f"{SHARDED_LOGIT_TOL}); launches {launches} (flash = {n} layers, "
+        f"paged = {n} x {steps} steps)")
+    if not torch.equal(toks, want_toks):
+        raise AssertionError("sharded greedy tokens differ from the "
+                             "unsharded model's")
+    if not err <= SHARDED_LOGIT_TOL:
+        raise AssertionError(f"sharded logits differ by {err}")
+    if launches != {"paged_attention": n * steps, "flash_attention": n}:
+        raise AssertionError(f"sharded serving launched {launches}, not "
+                             f"flash {n} and paged {n * steps}")
+    del model, params, cache, plan, dplan
+    free_model(torch)
+    return launches
+
+
+def sharded_training(torch, ops, card: str) -> None:
+    """Phase 11 (b): the training launcher with a 1x1 mesh on phase 11's
+    group, each step held to the unsharded launcher's; no kernel launch."""
+    import math
+
+    from repro_torch.launch import train as launcher
+
+    free_model(torch)
+    want = launcher.run(SHARDED_TRAIN_ARGS)
+    free_model(torch)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    got = launcher.run(SHARDED_TRAIN_ARGS + SHARDED_MESH_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {"paged_attention": ops.paged_gqa_decode.launches,
+              "flash_attention": ops.flash_prefill.launches,
+              "mlstm_chunk": ops.mlstm_chunk.launches}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    steps = [h["elapsed_s"] for h in got]
+    per_step = [b - a for a, b in zip(steps, steps[1:])]
+    log(f"  granite-3-2b full width, sharded "
+        f"({' '.join(SHARDED_TRAIN_ARGS + SHARDED_MESH_ARGS)}): "
+        f"{len(got)} steps in {wall:.1f} s (model init included); first "
+        f"step {steps[0]:.2f} s, later steps "
+        + " ".join(f"{d:.3f}" for d in per_step)
+        + f" s; peak memory {peak:.2f} GiB ({card})")
+    for name in ("loss", "grad_norm"):
+        log(f"  {name}: sharded "
+            + " ".join(f"{h[name]:.6f}" for h in got) + "; unsharded "
+            + " ".join(f"{h[name]:.6f}" for h in want))
+    log(f"  kernel launches while training: {counts}")
+    for g, w in zip(got, want):
+        for name in ("loss", "grad_norm"):
+            if not (math.isfinite(g[name]) and abs(g[name] - w[name])
+                    <= SHARDED_TRAIN_TOL * abs(w[name])):
+                raise AssertionError(f"sharded {name} {g[name]} against "
+                                     f"unsharded {w[name]}")
+    if len(got) != len(want):
+        raise AssertionError("the sharded run's step count differs")
+    if any(counts.values()):
+        raise AssertionError(f"sharded training launched kernels: {counts}")
+
+
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.configs import ASSIGNED_ARCHS
+from repro_torch.launch.dryrun import production_world, run_pair
+recs = []
+with production_world(False) as mesh:
+    for shape in sys.argv[1:]:
+        for arch in ASSIGNED_ARCHS:
+            recs.append(run_pair(arch, shape, multi_pod=False, mesh=mesh,
+                                 verbose=False))
+print("DRYRUN::" + json.dumps(recs))
+"""
+
+
+def start_dryrun_rows() -> tuple:
+    """Phase 11 (c)'s subprocess, started before (a) so that its host-only
+    work (meta tensors, a fake group apart from this process's state)
+    overlaps (a) and (b); returns it and its start time."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT,
+                             *DRYRUN_ROWS], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, time.perf_counter()
+
+
+def dryrun_rows(started: tuple, card: str) -> None:
+    """Phase 11 (c): the dry-run's ``DRYRUN_ROWS`` on the 16x16 fake mesh
+    (``start_dryrun_rows``'s subprocess); every pair ``ok``."""
+    proc, t = started
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        proc.kill()
+    wall = time.perf_counter() - t
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("DRYRUN::")]
+    if proc.returncode or not lines:
+        raise AssertionError(f"the dry-run subprocess failed "
+                             f"({proc.returncode}): {stderr[-2000:]}")
+    recs = json.loads(lines[0][len("DRYRUN::"):])
+    log(f"  {len(recs)} pairs on the 16x16 fake mesh, {wall:.1f} s from "
+        f"the start of phase 11 (the card's host, {card}; beside (a) and "
+        "(b)); per device:")
+    for rec in recs:
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run {rec['arch']} x {rec['shape']}: "
+                                 f"{rec['status']} {rec.get('error', '')}")
+        log(f"    {rec['arch']:16s} {rec['shape']:11s} {rec['mode']:7s} "
+            f"flops {rec['cost']['flops']:.4e} collective bytes "
+            f"{rec['collectives']['total_bytes']:.4e} argument bytes "
+            f"{rec['memory']['argument_bytes']} ({rec['wall_s']} s)")
+
+
 def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     """The before side of a comparison made in one chip call: times the
     kernels of another tree's port (an earlier commit unpacked beside this
@@ -2653,6 +2872,26 @@ def main(argv: list) -> int:
     train_reduced(torch, pkg, ops)
     log("  (c) full-width granite-3-2b at bf16 through the training launcher")
     train_full_width(torch, ops, card)
+
+    clock.start("11. the distribution layer on the card")
+    import torch.distributed as dist
+
+    rows = start_dryrun_rows()
+    try:
+        mesh = nccl_mesh(torch)
+        log("  (a) full-width granite-3-2b through the sharded serving "
+            "plans")
+        for name, n in sharded_serving(torch, ops, pkg, mesh, card).items():
+            launches[name] += n
+        log("  (b) full-width granite-3-2b through the training launcher's "
+            "--mesh path")
+        sharded_training(torch, ops, card)
+        dist.destroy_process_group()
+    except BaseException:
+        rows[0].kill()      # no process outlives a failed run
+        raise
+    log(f"  (c) the dry-run rows {', '.join(DRYRUN_ROWS)} at full width")
+    dryrun_rows(rows, card)
     clock.start(None)
 
     sources = {

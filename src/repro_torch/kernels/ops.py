@@ -14,6 +14,13 @@ through the kernels.  The counts are raised under a lock: a replicated
 fleet advances its engines on several threads, and the ctypes calls
 release the interpreter lock, so two engines really launch at once.
 
+Under a sharded plan a wrapper given DTensors runs on their local shards
+(``shardlib.local_call``) when each shard holds whole heads of whole
+sequences (split on the batch or the heads only), and raises when the
+head dim or the sequence is split: it never gathers quietly.  The callers
+in ``models/transformer.py`` redistribute q, k and v to such a layout
+first.
+
 The kernels are built at first use: every ``csrc/*.cu`` source is compiled
 by its own ``nvcc`` process (all started together) into a shared library
 with a plain C interface under ``build/torch_kernels/`` at the repository
@@ -32,7 +39,10 @@ import subprocess
 import threading
 from pathlib import Path
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mlstm_chunk as _mlstm
@@ -131,6 +141,31 @@ def refuse_grad(name: str, *tensors) -> None:
             "plain version (layers.attention_any, ref.mlstm_chunk_ref)")
 
 
+def _on_shards(name: str, wrapper, sig: str, *args, **kwargs):
+    """``wrapper`` over the local shards of DTensor arguments whose dims
+    named in ``sig`` are split only along ``b`` (batch) and ``n`` (heads);
+    raises ``ValueError`` for any other split."""
+    from repro_torch.models.shardlib import local_call
+
+    labels = sig.split("->")[0].split(",")
+    for lab, a in zip(labels, args):
+        if not isinstance(a, DTensor):
+            continue
+        for p in a.placements:
+            if isinstance(p, Shard) and lab[p.dim] not in "bn":
+                raise ValueError(
+                    f"{name}: an input is split along its dim {p.dim} "
+                    f"({lab[p.dim]!r}); the kernel runs on shards holding "
+                    "whole heads of whole sequences, so redistribute to a "
+                    "heads-local layout first")
+    return local_call(functools.partial(wrapper, **kwargs), sig, *args,
+                      keep="bn", split="n")
+
+
+def _any_dtensor(*xs) -> bool:
+    return any(isinstance(x, DTensor) for x in xs)
+
+
 def paged_gqa_decode(
     q,              # (B, nh, hd) one query token per sequence
     k_pages,        # (P, block_size, n_kv, hd)
@@ -142,6 +177,10 @@ def paged_gqa_decode(
 ):
     """Paged decode attention; returns (B, nh, hd).  The kernel applies
     the hd^-0.5 scale itself; the plain version takes q pre-scaled."""
+    if _any_dtensor(q, k_pages, v_pages):
+        return _on_shards("paged_gqa_decode", paged_gqa_decode,
+                          "bnh,psnh,psnh,bq,b->bnh", q, k_pages, v_pages,
+                          block_tables, lengths, block_size=block_size)
     b, nh, hd = q.shape
     n_kv = k_pages.shape[2]
     qg = q.reshape(b, n_kv, nh // n_kv, hd)
@@ -176,6 +215,10 @@ def flash_prefill(
     sizes, else ``ValueError``.  The kernel applies the hd^-0.5 scale to
     its f32 scores; the plain version takes q pre-scaled.
     """
+    if _any_dtensor(q, k, v):
+        return _on_shards("flash_prefill", flash_prefill,
+                          "bsnh,bsnh,bsnh->bsnh", q, k, v, window=window,
+                          block_q=block_q, block_k=block_k)
     s, hd = q.shape[1], q.shape[-1]
     if s % block_q or s % block_k:
         raise ValueError(f"S={s} must be divisible by block sizes")
@@ -219,6 +262,13 @@ def mlstm_chunk(
     if not 1 <= chunk <= _mlstm.MAX_CHUNK:
         raise ValueError(f"mlstm_chunk: chunk {chunk} is not in "
                          f"[1, {_mlstm.MAX_CHUNK}]")
+    if _any_dtensor(q, k, v):
+        st = tuple(state) if state is not None else (None, None, None)
+        h, c, n, m = _on_shards(
+            "mlstm_chunk", _mlstm_chunk_flat,
+            "bnsh,bnsh,bnsh,bns,bns,bnhk,bnh,bn->bnsh,bnhk,bnh,bn",
+            q, k, v, i_raw, log_f, *st, chunk=chunk)
+        return h, (c, n, m)
     if q.device.type == "cpu":
         return mlstm_chunk_ref(q, k, v, i_raw, log_f, state, chunk=chunk)
     refuse_grad("mlstm_chunk", q, k, v, i_raw, log_f,
@@ -232,6 +282,14 @@ def mlstm_chunk(
 
 
 mlstm_chunk.launches = 0
+
+
+def _mlstm_chunk_flat(q, k, v, i_raw, log_f, c, n, m, *, chunk):
+    """``mlstm_chunk`` with its state flattened (a local function of
+    ``_on_shards``)."""
+    state = None if c is None else (c, n, m)
+    h, (c, n, m) = mlstm_chunk(q, k, v, i_raw, log_f, state, chunk=chunk)
+    return h, c, n, m
 
 
 def _count(wrapper) -> None:

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.op_analysis import expand, loop_weights, repeated
+
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     """q: (B, n_kv, qpk, hd) pre-scaled; pages: (P, bs, n_kv, hd)."""
@@ -140,31 +142,35 @@ def mlstm_chunk_ref(q, k, v, i_raw, log_f, state=None, *, chunk: int = 64):
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
     neg_inf = torch.full((), -torch.inf, device=dev)
     outs = []
-    for c0 in range(0, qf.shape[2], chunk):
-        sl = slice(c0, c0 + chunk)
-        q_c, k_c, v_c = qf[:, :, sl], kf[:, :, sl], vf[:, :, sl]
-        i_c, f_c = ig[:, :, sl], fg[:, :, sl]
-        fcum = torch.cumsum(f_c, dim=-1)                     # F_t
-        d = fcum[..., :, None] - fcum[..., None, :] + i_c[..., None, :]
-        d = torch.where(causal, d, neg_inf)                  # (B,H,t,j)
-        m_inter = fcum + m_st[..., None]
-        m_t = torch.maximum(d.amax(dim=-1), m_inter)
-        w = torch.exp(d - m_t[..., None])
-        inter = torch.exp(m_inter - m_t)
-        sw = (q_c @ k_c.transpose(-1, -2)) * w
-        num = sw @ v_c + inter[..., None] * (q_c @ c_st)
-        den_sum = sw.sum(dim=-1) + inter * (q_c @ n_st[..., None])[..., 0]
-        den = torch.maximum(den_sum.abs(), torch.exp(-m_t))
-        outs.append(num / den[..., None])
-        # chunk-final state handoff
-        m_new = m_t[..., -1]
-        wj = torch.exp(fcum[..., -1:] - fcum + i_c - m_new[..., None])
-        decay = torch.exp(m_inter[..., -1] - m_new)
-        kw = k_c * wj[..., None]
-        c_st = decay[..., None, None] * c_st + kw.transpose(-1, -2) @ v_c
-        n_st = decay[..., None] * n_st + kw.sum(dim=-2)
-        m_st = m_new
-    out = torch.cat(outs, dim=2)[:, :, :s]
+    n_chunks = qf.shape[2] // chunk
+    weights = loop_weights(n_chunks, qf)
+    for i, reps in enumerate(weights):
+        with repeated(reps):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            q_c, k_c, v_c = qf[:, :, sl], kf[:, :, sl], vf[:, :, sl]
+            i_c, f_c = ig[:, :, sl], fg[:, :, sl]
+            fcum = torch.cumsum(f_c, dim=-1)                     # F_t
+            d = fcum[..., :, None] - fcum[..., None, :] + i_c[..., None, :]
+            d = torch.where(causal, d, neg_inf)                  # (B,H,t,j)
+            m_inter = fcum + m_st[..., None]
+            m_t = torch.maximum(d.amax(dim=-1), m_inter)
+            w = torch.exp(d - m_t[..., None])
+            inter = torch.exp(m_inter - m_t)
+            sw = (q_c @ k_c.transpose(-1, -2)) * w
+            num = sw @ v_c + inter[..., None] * (q_c @ c_st)
+            den_sum = (sw.sum(dim=-1)
+                       + inter * (q_c @ n_st[..., None])[..., 0])
+            den = torch.maximum(den_sum.abs(), torch.exp(-m_t))
+            outs.append(num / den[..., None])
+            # chunk-final state handoff
+            m_new = m_t[..., -1]
+            wj = torch.exp(fcum[..., -1:] - fcum + i_c - m_new[..., None])
+            decay = torch.exp(m_inter[..., -1] - m_new)
+            kw = k_c * wj[..., None]
+            c_st = decay[..., None, None] * c_st + kw.transpose(-1, -2) @ v_c
+            n_st = decay[..., None] * n_st + kw.sum(dim=-2)
+            m_st = m_new
+    out = torch.cat(expand(outs, weights), dim=2)[:, :, :s]
     return out.to(q.dtype), (c_st, n_st, m_st)
 
 

@@ -4,18 +4,27 @@ attention (full / sliding-window / cached-decode), and the gated MLP.
 PyTorch counterparts of ``repro.models.layers`` with the same names,
 argument order and tensor layouts, so a parity test feeds both the same
 numpy arrays.  Parameters are plain dicts of tensors.  The JAX package's
-``shard()`` annotations have no counterpart on one GPU and are dropped.
-The GShard MoE (``init_moe``, ``moe_mlp``) is plain PyTorch, as the JAX
-package computes it in jnp outside any Pallas kernel.
+``shard()`` annotations stand where JAX has them (``models/shardlib``):
+the identity on plain tensors, a redistribution of a DTensor under a
+sharded plan, where the products run on local shards
+(``shardlib.local_call``) and the attention core on shards that hold
+whole heads.  The GShard MoE (``init_moe``, ``moe_mlp``) is plain
+PyTorch, as the JAX package computes it in jnp outside any Pallas
+kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch.op_analysis import expand, loop_weights, repeated
+from repro_torch.models.shardlib import active_rules, local_call, shard
 
 # --------------------------------------------------------------------- norm
 
@@ -72,14 +81,19 @@ def gqa_attention(
 
     Logits in f32 (bf16 products are exact in f32, as XLA's
     ``preferred_element_type=f32``); masked entries get -1e30; the
-    probabilities are cast to the q dtype before the PV product.
+    probabilities are cast to the q dtype before the PV product.  On
+    DTensors the two products run on local shards (``_ein``) and the rest
+    is DTensor's: a head dim split over the mesh leaves the logits
+    ``Partial`` (reduced before the mask, as the JAX package's SPMD
+    reduces them), and a cache sequence split over the mesh (JAX's O3)
+    gathers only the probabilities' softmax dim, never the cache.
     """
     b, s, nh, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
     qpk = nh // nkv
     qg = q.reshape(b, s, nkv, qpk, hd)
 
-    logits = torch.einsum(
+    logits = _ein(
         "bsngh,btnh->bngst", qg.float(), k.float()
     ) * _qk_scale(hd)  # (B, nkv, qpk, S, T)
 
@@ -93,16 +107,17 @@ def gqa_attention(
     else:
         k_pos = kv_positions
 
+    # out of place: a plain mask meets the DTensor masks of a sharded plan
     mask = k_pos[:, None, :] <= q_pos[:, :, None]  # (B, S, T) causal
     if window:
-        mask &= k_pos[:, None, :] > (q_pos[:, :, None] - window)
+        mask = mask & (k_pos[:, None, :] > (q_pos[:, :, None] - window))
     if kv_valid is not None:
-        mask &= kv_valid[:, None, :]
+        mask = mask & kv_valid[:, None, :]
     logits = torch.where(mask[:, None, None, :, :], logits,
                          torch.full((), -1e30, device=q.device))
 
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bngst,btnh->bsngh", probs, v)
+    out = _ein("bngst,btnh->bsngh", probs, v)
     return out.reshape(b, s, nh, hd)
 
 
@@ -118,14 +133,28 @@ def chunked_gqa_attention(
 ):
     """Flash-style chunked attention in plain PyTorch (online softmax).
 
-    Same semantics as ``gqa_attention`` with O(S*chunk) memory.  The JAX
-    twin's context-parallel branch reduces to this sequential loop on one
-    GPU.
+    Same semantics as ``gqa_attention`` with O(S*chunk) memory: a loop
+    over q chunks, each an online softmax over the k chunks.  Context
+    parallelism (the JAX package's §Perf O4): where the active rules map
+    the logical ``"q_chunks"`` axis to a mesh axis, the q chunks are
+    stacked into a dim sharded on it and each device runs the loop over
+    its own chunks (nq forced to a multiple of that axis's degree);
+    otherwise one loop runs over all chunks, on shards holding whole heads
+    where the inputs are DTensors.
     """
     b, s, nh, hd = q.shape
-    t, nkv = k.shape[1], k.shape[2]
-    qpk = nh // nkv
+    t = k.shape[1]
     dev = q.device
+    cp_degree = 0
+    ctx = active_rules()
+    if ctx is not None:
+        mesh, rules = ctx
+        ax = rules.get("q_chunks")
+        if ax is not None:
+            cp_degree = 1
+            names = list(mesh.mesh_dim_names)
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                cp_degree *= mesh.size(names.index(a))
     # snap chunk sizes to divisors of s/t
     cq = s // max(1, s // min(chunk_q, s))
     ck = t // max(1, t // min(chunk_k, t))
@@ -133,7 +162,17 @@ def chunked_gqa_attention(
         cq += 1
     while t % ck:
         ck += 1
-    nq, nk = s // cq, t // ck
+    nq = s // cq
+    if cp_degree > 1:
+        # force nq to a multiple of the context-parallel degree
+        nq2 = ((max(nq, cp_degree) + cp_degree - 1) // cp_degree) * cp_degree
+        while nq2 <= s and s % nq2:
+            nq2 += cp_degree
+        if nq2 <= s:
+            nq = nq2
+            cq = s // nq
+        else:
+            cp_degree = 0  # cannot split this length: one loop
 
     if q_positions is None:
         q_positions = torch.arange(s, device=dev)[None].expand(b, s)
@@ -141,47 +180,96 @@ def chunked_gqa_attention(
         kv_positions = torch.arange(t, device=dev)[None].expand(b, t)
     if kv_valid is None:
         kv_valid = torch.ones((b, t), dtype=torch.bool, device=dev)
+    # pin the K/V layout outside the chunk loops (JAX: layers.py kg/vg)
+    k = shard(k, "batch", None, "kv_heads", "head_dim")
+    v = shard(v, "batch", None, "kv_heads", "head_dim")
+    loop = functools.partial(_q_chunk_loop, window=window, ck=ck)
+    if cp_degree > 1:
+        qg = shard(q.reshape(b, nq, cq, nh, hd),
+                   "batch", "q_chunks", None, None, None)
+        qp = shard(q_positions.reshape(b, nq, cq), "batch", "q_chunks", None)
+        outs = local_call(loop, "bcqnh,bcq,btnh,btnh,bt,bt->bcqnh", qg, qp,
+                          k, v, kv_positions, kv_valid, keep="bcn",
+                          split="n")
+        outs = shard(outs, "batch", "q_chunks", None, None, None)
+        return outs.reshape(b, s, nh, hd)
+    qg = q.reshape(b, nq, cq, nh, hd)
+    qp = q_positions.reshape(b, nq, cq)
+    outs = local_call(loop, "bcqnh,bcq,btnh,btnh,bt,bt->bcqnh", qg, qp, k, v,
+                      kv_positions, kv_valid, keep="bn", split="n")
+    return outs.reshape(b, s, nh, hd)
 
-    qg = q.reshape(b, nq, cq, nkv, qpk, hd)
+
+def _q_chunk_loop(qg, qp, k, v, kv_positions, kv_valid, *, window: int,
+                  ck: int):
+    """The online-softmax loop of ``chunked_gqa_attention`` over the q
+    chunks ``qg`` (B, nq, cq, nh, hd) at positions ``qp`` (B, nq, cq):
+    returns (B, nq, cq, nh, hd)."""
+    b, nq, cq, nh, hd = qg.shape
+    t, nkv = k.shape[1], k.shape[2]
+    qpk = nh // nkv
+    nk = t // ck
+    qg = qg.reshape(b, nq, cq, nkv, qpk, hd)
     kg = k.reshape(b, nk, ck, nkv, hd)
     vg = v.reshape(b, nk, ck, nkv, hd)
-    qp = q_positions.reshape(b, nq, cq)
     kp = kv_positions.reshape(b, nk, ck)
     kva = kv_valid.reshape(b, nk, ck)
-    scale = _qk_scale(hd)
+
+    # identical iterations: a counted meta run takes three of each loop
+    wq, wk = loop_weights(nq, qg), loop_weights(nk, qg)
+    outs = []
+    for iq, w in enumerate(wq):
+        with repeated(w):
+            outs.append(_one_q_chunk(qg[:, iq], qp[:, iq], kg, vg, kp, kva,
+                                     window, wk))
+    return torch.stack(expand(outs, wq), dim=1)
+
+
+def _one_q_chunk(q_c, qp_c, kg, vg, kp, kva, window: int, wk: list):
+    """One q chunk (B,cq,nkv,qpk,hd) against the k chunks: (B,cq,nh,hd).
+    Where autograd records, each k chunk's step is recomputed in the
+    backward pass, as the JAX package checkpoints it."""
+    b, cq, nkv, qpk, hd = q_c.shape
+    dev = q_c.device
+    m = torch.full((b, nkv, qpk, cq), -torch.inf, device=dev)
+    l = torch.zeros((b, nkv, qpk, cq), device=dev)
+    o = torch.zeros((b, nkv, qpk, cq, hd), device=dev)
+    step = functools.partial(_k_chunk_step, window=window)
+    if torch.is_grad_enabled() and q_c.requires_grad:
+        step = functools.partial(checkpoint, step, use_reentrant=False)
+    for ik, w in enumerate(wk):
+        with repeated(w):
+            m, l, o = step(m, l, o, q_c, qp_c, kg[:, ik], vg[:, ik],
+                           kp[:, ik], kva[:, ik])
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    # (B,nkv,qpk,cq,hd) -> (B,cq,nh,hd)
+    return torch.movedim(out, 3, 1).reshape(b, cq, nkv * qpk, hd).to(
+        q_c.dtype)
+
+
+def _k_chunk_step(m, l, o, q_c, qp_c, k_c, v_c, kp_c, kva_c, *, window):
+    """One online-softmax step of a q chunk over a k chunk: the new
+    running max, normaliser and output (m, l, o)."""
+    dev = q_c.device
     neg_inf = torch.full((), -torch.inf, device=dev)
     zero = torch.zeros((), device=dev)
-
-    outs = []
-    for iq in range(nq):
-        q_c, qp_c = qg[:, iq], qp[:, iq]     # (B,cq,nkv,qpk,hd), (B,cq)
-        m = torch.full((b, nkv, qpk, cq), -torch.inf, device=dev)
-        l = torch.zeros((b, nkv, qpk, cq), device=dev)
-        o = torch.zeros((b, nkv, qpk, cq, hd), device=dev)
-        for ik in range(nk):
-            k_c, v_c, kp_c, kva_c = kg[:, ik], vg[:, ik], kp[:, ik], kva[:, ik]
-            s_ = torch.einsum(
-                "bqngh,bknh->bngqk", q_c.float(), k_c.float()
-            ) * scale                                   # (B,nkv,qpk,cq,ck)
-            msk = (kp_c[:, None, :] <= qp_c[:, :, None]) & kva_c[:, None, :]
-            if window:
-                msk &= kp_c[:, None, :] > (qp_c[:, :, None] - window)
-            s_ = torch.where(msk[:, None, None], s_, neg_inf)
-            m_new = torch.maximum(m, s_.amax(dim=-1))
-            safe = torch.where(torch.isfinite(m_new), m_new, zero)
-            alpha = torch.where(torch.isfinite(m), torch.exp(m - safe), zero)
-            p = torch.where(torch.isfinite(s_),
-                            torch.exp(s_ - safe[..., None]), zero)
-            l = alpha * l + p.sum(dim=-1)
-            o = alpha[..., None] * o + torch.einsum(
-                "bngqk,bknh->bngqh", p.to(v_c.dtype), v_c
-            ).float()
-            m = m_new
-        out = o / torch.clamp(l, min=1e-30)[..., None]
-        # (B,nkv,qpk,cq,hd) -> (B,cq,nh,hd)
-        outs.append(torch.movedim(out, 3, 1).reshape(b, cq, nh, hd)
-                    .to(q.dtype))
-    return torch.cat(outs, dim=1)
+    s_ = torch.einsum(
+        "bqngh,bknh->bngqk", q_c.float(), k_c.float()
+    ) * _qk_scale(q_c.shape[-1])                    # (B,nkv,qpk,cq,ck)
+    msk = (kp_c[:, None, :] <= qp_c[:, :, None]) & kva_c[:, None, :]
+    if window:
+        msk &= kp_c[:, None, :] > (qp_c[:, :, None] - window)
+    s_ = torch.where(msk[:, None, None], s_, neg_inf)
+    m_new = torch.maximum(m, s_.amax(dim=-1))
+    safe = torch.where(torch.isfinite(m_new), m_new, zero)
+    alpha = torch.where(torch.isfinite(m), torch.exp(m - safe), zero)
+    p = torch.where(torch.isfinite(s_), torch.exp(s_ - safe[..., None]),
+                    zero)
+    l = alpha * l + p.sum(dim=-1)
+    o = alpha[..., None] * o + torch.einsum(
+        "bngqk,bknh->bngqh", p.to(v_c.dtype), v_c
+    ).float()
+    return m_new, l, o
 
 
 def attention_any(
@@ -239,24 +327,49 @@ def init_attention(gen: torch.Generator, d_model: int, dims: AttnDims,
     }
 
 
-def project_heads(x, w):
-    """x: (B,S,D) @ w: (D,n,hd) -> (B,S,n,hd) (JAX: einsum bsd,dnh->bsnh)."""
+def _project_heads(x, w):
     b, s, d = x.shape
     return (x @ w.reshape(d, -1)).reshape(b, s, *w.shape[1:])
+
+
+def project_heads(x, w):
+    """x: (B,S,D) @ w: (D,n,hd) -> (B,S,n,hd) (JAX: einsum bsd,dnh->bsnh)."""
+    return local_call(_project_heads, "bsd,dnh->bsnh", x, w)
+
+
+def matmul(x, w, sig: str):
+    """``x @ w``, on local shards where either is a DTensor; ``sig`` names
+    the dims (``"bsd,df->bsf"``)."""
+    return local_call(torch.matmul, sig, x, w)
 
 
 def attention_qkv(p, x, positions, theta: float, use_rope: bool):
     """Project and (optionally) rotate. x: (B,S,D) -> q,k,v (B,S,n,hd)."""
     q, k, v = (project_heads(x, p[w]) for w in ("wq", "wk", "wv"))
+    ctxr = active_rules()
+    if ctxr is not None and ctxr[1].get("head_dim_proj") is not None:
+        # the JAX package's context-parallel projection pin (its §Perf
+        # O4/iteration 5, kept disabled by the rules)
+        q = shard(q, "batch", "seq", "heads", "head_dim_proj")
+        k = shard(k, "batch", "seq", "kv_heads", "head_dim_proj")
+        v = shard(v, "batch", "seq", "kv_heads", "head_dim_proj")
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     if use_rope:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
     return q, k, v
 
 
-def attention_out(p, o):
+def _attention_out(o, wo):
     b, s, nh, hd = o.shape
-    return o.reshape(b, s, nh * hd) @ p["wo"].reshape(nh * hd, -1)
+    return o.reshape(b, s, nh * hd) @ wo.reshape(nh * hd, -1)
+
+
+def attention_out(p, o):
+    y = local_call(_attention_out, "bsnh,nhd->bsd", o, p["wo"])
+    return shard(y, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------- mlp
@@ -275,8 +388,11 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
 
 
 def gated_mlp(p, x):
-    h = F.silu(x @ p["w1"]) * (x @ p["w3"])
-    return h @ p["w2"]
+    h = F.silu(matmul(x, p["w1"], "bsd,df->bsf")) * matmul(
+        x, p["w3"], "bsd,df->bsf")
+    h = shard(h, "batch", "seq", "ffn")
+    y = matmul(h, p["w2"], "bsf,fd->bsd")
+    return shard(y, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------- moe
@@ -308,6 +424,38 @@ def top_k_lower_index_first(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _ein(eq: str, a, b):
+    """``torch.einsum(eq, a, b)``, on local shards where either is a
+    DTensor."""
+    return local_call(functools.partial(torch.einsum, eq), eq, a, b)
+
+
+def _moe_route(xg, router, *, top_k: int, cap: int):
+    """The MoE's routing per (row, group): dispatch and combine tensors
+    (B,G,g,E,C), the per-token expert counts and router probabilities
+    (B,G,g,E) for the load-balance term."""
+    e = router.shape[-1]
+    b, ng, g, _ = xg.shape
+    gate_logits = torch.einsum("bngd,de->bnge", xg.float(), router)
+    probs = torch.softmax(gate_logits, dim=-1)               # (B,G,g,E)
+    gate_vals, gate_idx = top_k_lower_index_first(probs, top_k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # position of each (token, k) within its expert's capacity buffer
+    onehot = F.one_hot(gate_idx, e).float()                  # (B,G,g,K,E)
+    flat = onehot.reshape(b, ng, g * top_k, e)
+    pos_in_expert = torch.cumsum(flat, dim=2) * flat - 1.0
+    pos_in_expert = pos_in_expert.reshape(b, ng, g, top_k, e)
+    fits = (pos_in_expert >= 0) & (pos_in_expert < cap)
+    slot = F.one_hot(torch.clamp(pos_in_expert, 0, cap - 1).long(), cap)
+    kept = onehot * fits
+    disp = (slot.to(xg.dtype) * kept[..., None].to(xg.dtype)).sum(dim=3)
+    comb = (slot.float() * (kept * gate_vals[..., None])[..., None]
+            ).sum(dim=3).to(xg.dtype)                        # (B,G,g,E,C)
+    return disp, comb, onehot.sum(3), probs
+
+
 def moe_mlp(p, x, *, top_k: int, capacity_factor: float = 1.25,
             group_size: int = 1024):
     """GShard-style capacity-based top-k MoE, grouped along the sequence;
@@ -331,32 +479,22 @@ def moe_mlp(p, x, *, top_k: int, capacity_factor: float = 1.25,
     cap = max(1, int(g * top_k / e * capacity_factor))
 
     xg = x.reshape(b, ng, g, d)
-    gate_logits = torch.einsum("bngd,de->bnge", xg.float(), p["router"])
-    probs = torch.softmax(gate_logits, dim=-1)               # (B,G,g,E)
-    gate_vals, gate_idx = top_k_lower_index_first(probs, top_k)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    route = functools.partial(_moe_route, top_k=top_k, cap=cap)
+    disp, comb, counts, probs = local_call(
+        route, "bngd,de->bngec,bngec,bnge,bnge", xg, p["router"], keep="bn")
 
-    # position of each (token, k) within its expert's capacity buffer
-    onehot = F.one_hot(gate_idx, e).float()                  # (B,G,g,K,E)
-    flat = onehot.reshape(b, ng, g * top_k, e)
-    pos_in_expert = torch.cumsum(flat, dim=2) * flat - 1.0
-    pos_in_expert = pos_in_expert.reshape(b, ng, g, top_k, e)
-    fits = (pos_in_expert >= 0) & (pos_in_expert < cap)
-    slot = F.one_hot(torch.clamp(pos_in_expert, 0, cap - 1).long(), cap)
-    kept = onehot * fits
-    disp = (slot.to(x.dtype) * kept[..., None].to(x.dtype)).sum(dim=3)
-    comb = (slot.float() * (kept * gate_vals[..., None])[..., None]
-            ).sum(dim=3).to(x.dtype)                         # (B,G,g,E,C)
+    xe = _ein("bngd,bngec->bnecd", xg, disp)                # (B,G,E,C,D)
+    # expert-parallel archs shard E ("experts"->model, "ffn"->None);
+    # few-expert archs shard F instead (the JAX package's rules)
+    xe = shard(xe, "batch", None, "experts", None, None)
+    h = F.silu(_ein("bnecd,edf->bnecf", xe, p["w1"])) * _ein(
+        "bnecd,edf->bnecf", xe, p["w3"])
+    h = shard(h, "batch", None, "experts", None, "ffn")
+    ye = _ein("bnecf,efd->bnecd", h, p["w2"])
+    y = _ein("bnecd,bngec->bngd", ye, comb).reshape(b, s, d)
+    y = shard(y, "batch", "seq", "embed")
 
-    xe = torch.einsum("bngd,bngec->bnecd", xg, disp)         # (B,G,E,C,D)
-    h = F.silu(torch.einsum("bnecd,edf->bnecf", xe, p["w1"])) * torch.einsum(
-        "bnecd,edf->bnecf", xe, p["w3"]
-    )
-    ye = torch.einsum("bnecf,efd->bnecd", h, p["w2"])
-    y = torch.einsum("bnecd,bngec->bngd", ye, comb).reshape(b, s, d)
-
-    frac_tokens = onehot.sum(3).mean(dim=(0, 1, 2))          # (E,)
+    frac_tokens = counts.mean(dim=(0, 1, 2))                 # (E,)
     frac_probs = probs.mean(dim=(0, 1, 2))                   # (E,)
     aux = e * torch.sum(frac_tokens * frac_probs)
     return y, aux

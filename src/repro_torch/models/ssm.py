@@ -22,6 +22,10 @@ as the JAX package leaves them to XLA.  The per-step forms (``mlstm_forward``, `
 whole sLSTM are plain PyTorch: no Pallas kernel computes them.
 ``slstm_forward`` projects the whole input once and then loops over the
 recurrent step token by token, as the JAX ``lax.scan`` does.
+
+Under a sharded plan (DTensor inputs) each mixer runs on the batch shards
+of its input with its weights gathered whole (``_on_batch_shards``), and
+its output is annotated as the JAX package annotates it.
 """
 
 from __future__ import annotations
@@ -31,14 +35,39 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ops import mlstm_chunk
+from repro_torch.launch.op_analysis import expand, loop_weights, repeated
 from repro_torch.kernels.ref import empty_mlstm_state, mlstm_chunk_ref
 from repro_torch.models.layers import stacked_normal
+from repro_torch.models.shardlib import local_call, shard
 
 #: tokens per chunk of the chunkwise mLSTM (the kernel's largest tile); any
 #: prompt length runs, the last chunk masked
 MLSTM_CHUNK = 64
+
+
+def _on_batch_shards(fn, p, x, state, state_sigs: tuple):
+    """``fn(p, x, state) -> (y, new_state)`` on the batch shards of the
+    DTensor ``x`` (and of the state tensors, whose dims ``state_sigs``
+    name), with every weight of ``p`` gathered.  ``state`` is a tuple of
+    tensors, or None (then ``fn`` gets None)."""
+    st = tuple(state) if state is not None else (None,) * len(state_sigs)
+
+    def flat(p, x, *st):
+        y, new = fn(p, x, None if st[0] is None else tuple(st))
+        return (y, *new)
+
+    sigs = ",".join(state_sigs)
+    y, *new = local_call(flat, f"~,bsd,{sigs}->bsd,{sigs}", p, x, *st,
+                         keep="b")
+    return shard(y, "batch", "seq", "embed"), tuple(new)
+
+
+_MAMBA_STATE = ("bhpn", "bwc")
+_MLSTM_STATE = ("bhkv", "bhk", "bh")
+_SLSTM_STATE = ("bhk",) * 4
 
 
 def _normal(gen, shape, scale, dtype, device):
@@ -158,6 +187,11 @@ def _mamba2_out(p, x, y, xs, z):
 def mamba2_forward(p, x, state=None, conv_state=None):
     """Per-step form (the oracle of the chunkwise form, and decode).
     x: (B,S,D) -> (y, (ssm_state, conv_state))."""
+    if isinstance(x, DTensor):
+        return _on_batch_shards(
+            lambda p, x, st: mamba2_forward(p, x, *(st or (None, None))),
+            p, x, (state, conv_state) if state is not None else None,
+            _MAMBA_STATE)
     b, s, _ = x.shape
     z, xs, bv, cv, dt, log_lam, new_conv = _mamba2_steps(p, x, conv_state)
     if state is None:
@@ -187,6 +221,12 @@ def mamba2_forward_chunked(p, x, state=None, conv_state=None,
 
     The chunk size is JAX's rule: ``s // max(1, s // min(chunk, s))``,
     raised until it divides S."""
+    if isinstance(x, DTensor):
+        return _on_batch_shards(
+            lambda p, x, st: mamba2_forward_chunked(
+                p, x, *(st or (None, None)), chunk=chunk),
+            p, x, (state, conv_state) if state is not None else None,
+            _MAMBA_STATE)
     b, s, _ = x.shape
     z, xs, bv, cv, dt, log_lam, new_conv = _mamba2_steps(p, x, conv_state)
     h, pdim = xs.shape[2:]
@@ -205,25 +245,27 @@ def mamba2_forward_chunked(p, x, state=None, conv_state=None,
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
                                    device=x.device))[None, :, :, None]
     ys = []
-    for i in range(nc):
-        u_c, b_c, c_c = ug[:, i], bg[:, i], cg[:, i]
-        cum = torch.cumsum(lg[:, i], dim=1)                       # (B,c,H)
-        # intra-chunk decay-weighted "attention" (B,c,c,H): the exponent
-        # is positive in the masked upper triangle, so it is zeroed before
-        # the exp
-        expo = cum[:, :, None, :] - cum[:, None, :, :]            # t, j
-        ratio = torch.exp(torch.where(causal, expo, 0.0))
-        cb = torch.einsum("btn,bjn->btj", c_c, b_c)
-        g = torch.where(causal, cb[..., None] * ratio, 0.0)
-        y_intra = torch.einsum("btjh,bjhp->bthp", g, u_c)
-        y_inter = torch.exp(cum)[..., None] * torch.einsum(
-            "btn,bhpn->bthp", c_c, state)
-        # chunk-final state
-        wj = torch.exp(cum[:, -1:, :] - cum)                      # (B,c,H)
-        upd = torch.einsum("bjhp,bjn,bjh->bhpn", u_c, b_c, wj)
-        state = state * torch.exp(cum[:, -1])[..., None, None] + upd
-        ys.append(y_intra + y_inter)
-    y = torch.cat(ys, dim=1)
+    weights = loop_weights(nc, x)
+    for i, w in enumerate(weights):
+        with repeated(w):
+            u_c, b_c, c_c = ug[:, i], bg[:, i], cg[:, i]
+            cum = torch.cumsum(lg[:, i], dim=1)                       # (B,c,H)
+            # intra-chunk decay-weighted "attention" (B,c,c,H): the exponent
+            # is positive in the masked upper triangle, so it is zeroed before
+            # the exp
+            expo = cum[:, :, None, :] - cum[:, None, :, :]            # t, j
+            ratio = torch.exp(torch.where(causal, expo, 0.0))
+            cb = torch.einsum("btn,bjn->btj", c_c, b_c)
+            g = torch.where(causal, cb[..., None] * ratio, 0.0)
+            y_intra = torch.einsum("btjh,bjhp->bthp", g, u_c)
+            y_inter = torch.exp(cum)[..., None] * torch.einsum(
+                "btn,bhpn->bthp", c_c, state)
+            # chunk-final state
+            wj = torch.exp(cum[:, -1:, :] - cum)                      # (B,c,H)
+            upd = torch.einsum("bjhp,bjn,bjh->bhpn", u_c, b_c, wj)
+            state = state * torch.exp(cum[:, -1])[..., None, None] + upd
+            ys.append(y_intra + y_inter)
+    y = torch.cat(expand(ys, weights), dim=1)
     return _mamba2_out(p, x, y, xs, z), (state, new_conv)
 
 
@@ -312,11 +354,21 @@ def _mlstm_step(state, q_t, k_t, v_t, i_t, f_t):
     return (c, n, m_new), num / den[..., None]
 
 
+def _mlstm_qkv(p, x):
+    """q, k, v (B,S,H,hd), annotated as the JAX package annotates them
+    (inside a batch-local region they are plain local tensors, and the
+    annotations pass them through)."""
+    q, k, v = (_proj(x, p[w]) for w in ("wq", "wk", "wv"))
+    return (shard(q, "batch", "seq", "heads", "head_dim"),
+            shard(k, "batch", "seq", "kv_heads", "head_dim"),
+            shard(v, "batch", "seq", "kv_heads", "head_dim"))
+
+
 def mlstm_forward(p, x, state=None):
     """Recurrent full-sequence form, one step per token (the oracle of the
     chunkwise form).  Returns (y (B,S,D), final_state)."""
     b, s, _ = x.shape
-    q, k, v = (_proj(x, p[w]) for w in ("wq", "wk", "wv"))
+    q, k, v = _mlstm_qkv(p, x)
     i_raw, log_f = _mlstm_gates(p, x)
     if state is None:
         state = mlstm_init_state(p, b)
@@ -332,7 +384,7 @@ def mlstm_forward(p, x, state=None):
 def _mlstm_chunked(p, x, state, chunk_fn):
     """Projections, gates, ``chunk_fn`` (the chunkwise mLSTM over
     (B, H, S, ...) tensors), head norm and output projection."""
-    q, k, v = (_proj(x, p[w]) for w in ("wq", "wk", "wv"))
+    q, k, v = _mlstm_qkv(p, x)
     i_raw, log_f = _mlstm_gates(p, x)
     h, state = chunk_fn(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -350,6 +402,10 @@ def mlstm_forward_chunked(p, x, state=None, chunk: int = MLSTM_CHUNK):
     JAX package picks a chunk that divides S, the port masks its last chunk,
     so the two agree to rounding, not bit for bit.
     """
+    if isinstance(x, DTensor):
+        return _on_batch_shards(
+            lambda p, x, st: mlstm_forward_chunked(p, x, st, chunk),
+            p, x, state, _MLSTM_STATE)
     return _mlstm_chunked(p, x, state,
                           functools.partial(mlstm_chunk, chunk=chunk))
 
@@ -359,6 +415,10 @@ def mlstm_forward_train(p, x, chunk: int = 256):
     the plain chunkwise mLSTM (``mlstm_chunk_ref``, differentiable) from
     the empty state, in chunks of JAX's rule (``divisor_chunk``, 256 by
     default).  Returns (y (B,S,D), final_state)."""
+    if isinstance(x, DTensor):
+        return _on_batch_shards(
+            lambda p, x, st: mlstm_forward_train(p, x, chunk), p, x, None,
+            _MLSTM_STATE)
     c = divisor_chunk(x.shape[1], chunk)
     return _mlstm_chunked(p, x, None,
                           functools.partial(mlstm_chunk_ref, chunk=c))
@@ -366,6 +426,8 @@ def mlstm_forward_train(p, x, chunk: int = 256):
 
 def mlstm_decode(p, x1, state):
     """One-token recurrent step.  x1: (B,1,D)."""
+    if isinstance(x1, DTensor):
+        return _on_batch_shards(mlstm_decode, p, x1, state, _MLSTM_STATE)
     q, k, v = (_proj(x1, p[w])[:, 0] for w in ("wq", "wk", "wv"))
     i_raw, log_f = _mlstm_gates(p, x1)
     state, h = _mlstm_step(state, q, k, v, i_raw[:, 0], log_f[:, 0])
@@ -429,16 +491,21 @@ def _slstm_step(p, carry, u_t):
 def slstm_forward(p, x, state=None):
     """x: (B,S,D) -> (y, state): the input projection of every token at
     once, then a loop over the recurrent step."""
+    if isinstance(x, DTensor):
+        return _on_batch_shards(slstm_forward, p, x, state, _SLSTM_STATE)
     b, s, d = x.shape
     u = (x.float() @ p["w_in"].float().reshape(d, -1)).reshape(
         b, s, *p["w_in"].shape[1:])
     if state is None:
         state = slstm_init_state(p, b)
     hs = []
-    for t in range(s):
-        state, h_t = _slstm_step(p, state, u[:, t])
+    weights = loop_weights(s, x)
+    for t, w in enumerate(weights):
+        with repeated(w):
+            state, h_t = _slstm_step(p, state, u[:, t])
         hs.append(h_t)
-    h = rms_head_norm(torch.stack(hs, dim=1).to(x.dtype), p["norm_w"])
+    h = rms_head_norm(torch.stack(expand(hs, weights), dim=1).to(x.dtype),
+                      p["norm_w"])
     return _out(h, p["wo"]), state
 
 

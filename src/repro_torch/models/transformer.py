@@ -82,10 +82,12 @@ JAX's serving computes no gradients.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -102,9 +104,16 @@ from repro_torch.models.layers import (
     init_attention,
     init_mlp,
     init_moe,
+    matmul,
     moe_mlp,
     project_heads,
     rms_norm,
+)
+from repro_torch.models.shardlib import (
+    contiguous_stride,
+    local_call,
+    local_offset,
+    shard,
 )
 
 #: tokens per page when decode attention views a slot cache as pages, for
@@ -140,11 +149,45 @@ def _write_rows(pos, t: int, s: int):
     return start[:, None] + torch.arange(s, device=pos.device)
 
 
+def _scatter_rows(cache, new, rows):
+    """``cache[b, rows[b, i]] = new[b, i]`` in place on a DTensor cache
+    (B, T, ...), on each rank's own shard: ``new`` and ``rows`` are brought
+    to the cache's layout (never the cache to theirs), and a rank whose
+    shard of a sequence-sharded cache does not hold a row writes it back
+    unchanged (the ring write at ``pos mod T`` of the JAX package's
+    long-context decode lands on the one shard that owns the row)."""
+    mesh, pl = cache.device_mesh, cache.placements
+
+    def as_dt(x):
+        if isinstance(x, DTensor):
+            return x
+        return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+
+    new_pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+              for p in pl]
+    rows_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in pl]
+    new = as_dt(new).redistribute(mesh, new_pl).to_local()
+    rows = as_dt(rows).redistribute(mesh, rows_pl).to_local()
+    local = cache.to_local()
+    t_local = local.shape[1]
+    lr = rows.long() - local_offset(cache, 1)
+    own = (lr >= 0) & (lr < t_local)
+    lr = torch.clamp(lr, 0, t_local - 1)
+    bi = torch.arange(local.shape[0], device=lr.device)[:, None]
+    own = own.reshape(*own.shape, *(1,) * (local.ndim - 2))
+    local[bi, lr] = torch.where(own, new.to(local.dtype), local[bi, lr])
+    return cache
+
+
 def update_cache(cache_kv, new_kv, pos):
     """cache_kv: (B,T,n,h); new_kv: (B,S,n,h); pos: (B,) write offsets.
     Writes in place and returns ``cache_kv``."""
     b, t = cache_kv.shape[:2]
     rows = _write_rows(pos, t, new_kv.shape[1])
+    if isinstance(cache_kv, DTensor):
+        return _scatter_rows(cache_kv, new_kv, rows)
     cache_kv[torch.arange(b, device=pos.device)[:, None], rows] = new_kv.to(
         cache_kv.dtype
     )
@@ -158,6 +201,8 @@ def update_pos(kv_pos, pos, s):
     new = pos.to(kv_pos.dtype)[:, None] + torch.arange(
         s, dtype=kv_pos.dtype, device=pos.device
     )
+    if isinstance(kv_pos, DTensor):
+        return _scatter_rows(kv_pos, new, _write_rows(pos, t, s))
     kv_pos[torch.arange(b, device=pos.device)[:, None],
            _write_rows(pos, t, s)] = new
     return kv_pos
@@ -174,6 +219,8 @@ def update_pos_masked(kv_pos, pos, s, lens):
     new = torch.where(new < lens[:, None].to(kv_pos.dtype), new,
                       torch.full((), -1, dtype=kv_pos.dtype,
                                  device=pos.device))
+    if isinstance(kv_pos, DTensor):
+        return _scatter_rows(kv_pos, new, _write_rows(pos, t, s))
     kv_pos[torch.arange(b, device=pos.device)[:, None],
            _write_rows(pos, t, s)] = new
     return kv_pos
@@ -183,6 +230,8 @@ def ring_update_cache(cache_kv, new_kv, pos):
     """SWA ring buffer: write one token at row ``pos % T`` (in place).
     new_kv: (B,1,n,h)."""
     b, t = cache_kv.shape[:2]
+    if isinstance(cache_kv, DTensor):
+        return _scatter_rows(cache_kv, new_kv, (pos.long() % t)[:, None])
     rows = torch.arange(b, device=pos.device)
     cache_kv[rows, pos.long() % t] = new_kv[:, 0].to(cache_kv.dtype)
     return cache_kv
@@ -191,6 +240,9 @@ def ring_update_cache(cache_kv, new_kv, pos):
 def ring_update_pos(kv_pos, pos):
     """Record position ``pos`` at ring row ``pos % T`` (in place)."""
     b, t = kv_pos.shape
+    if isinstance(kv_pos, DTensor):
+        return _scatter_rows(kv_pos, pos.to(kv_pos.dtype)[:, None],
+                             (pos.long() % t)[:, None])
     rows = torch.arange(b, device=pos.device)
     kv_pos[rows, pos.long() % t] = pos.to(kv_pos.dtype)
     return kv_pos
@@ -219,7 +271,16 @@ def check_slot_contiguous(kv_pos, pos) -> None:
 def _prefill_attention(q, k, v, window: int):
     """Causal (+SWA) attention of a whole prompt through ``flash_prefill``:
     S is padded to a multiple of PREFILL_BLOCK (padded keys lie after every
-    real query, so the causal mask hides them) and the padding cut off."""
+    real query, so the causal mask hides them) and the padding cut off.
+    DTensors are redistributed to shards holding whole heads (split on the
+    heads where ``n_heads`` and ``n_kv`` both divide the mesh axis, else
+    replicated) and the kernel runs on those."""
+    return local_call(functools.partial(_prefill_attention_local,
+                                        window=window),
+                      "bsnh,bsnh,bsnh->bsnh", q, k, v, keep="bn", split="n")
+
+
+def _prefill_attention_local(q, k, v, *, window: int):
     s = q.shape[1]
     pad = -s % PREFILL_BLOCK
     if pad:
@@ -252,7 +313,12 @@ def slot_pages(b: int, t: int, pos):
 def _decode_attention(q, k_cache, v_cache, pos, pages=None):
     """One query token per slot against the slot cache, through
     ``paged_gqa_decode`` with a slot-contiguous block table; ``pages`` is
-    ``slot_pages(B, T, pos)`` where the caller has built it already."""
+    ``slot_pages(B, T, pos)`` where the caller has built it already.
+    DTensors run on shards holding whole heads of whole sequences, as in
+    ``_prefill_attention``, each building its own block tables."""
+    if isinstance(k_cache, DTensor):
+        return local_call(_decode_attention, "bsnh,btnh,btnh,b->bsnh", q,
+                          k_cache, v_cache, pos, keep="bn", split="n")
     b, t, n_kv, hd = k_cache.shape
     if pages is None:
         pages = slot_pages(b, t, pos)
@@ -387,11 +453,12 @@ def dense_block_chunk(p, x, pos, positions, lens, k_cache, v_cache, kv_pos,
 
 
 def dense_block_decode(p, x, pos, k_cache, v_cache, kv_pos, cfg: ModelConfig,
-                       ring: bool, pages=None):
+                       ring: bool, pages=None, kernels: bool = True):
     """One-token decode step against a (possibly ring) KV cache, updated in
     place.  A full cache decodes through the paged kernel (``pages``: the
     step's ``slot_pages``, built here when not given), a ring through the
-    plain masked attention."""
+    plain masked attention, as does a full cache with ``kernels=False``
+    (the JAX package's decode attention)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = attention_qkv(
         p["attn"], h, pos[:, None], cfg.rope_theta, cfg.use_rope
@@ -411,7 +478,13 @@ def dense_block_decode(p, x, pos, k_cache, v_cache, kv_pos, cfg: ModelConfig,
         update_cache(k_cache, k_new, pos)
         update_cache(v_cache, v_new, pos)
         update_pos(kv_pos, pos, 1)
-        att = _decode_attention(q, k_cache, v_cache, pos, pages)
+        if kernels:
+            att = _decode_attention(q, k_cache, v_cache, pos, pages)
+        else:
+            att = gqa_attention(q, k_cache, v_cache,
+                                window=cfg.sliding_window,
+                                q_positions=pos[:, None],
+                                kv_positions=kv_pos, kv_valid=kv_pos >= 0)
     x = x + attention_out(p["attn"], att)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + block_ffn(p, h2, cfg)[0], k_cache, v_cache, kv_pos
@@ -436,10 +509,12 @@ def init_decoder_blocks(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def dense_block_decode_selfonly(p, x, pos, k_cache, v_cache, kv_pos,
-                                cfg: ModelConfig, pages=None):
+                                cfg: ModelConfig, pages=None,
+                                kernels: bool = True):
     """Self-attention part of a decoder block (cross-attention handled
     outside), against a full cache updated in place, through the paged
-    kernel (JAX: the masked attention without a window)."""
+    kernel, or with ``kernels=False`` JAX's masked attention without a
+    window."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = attention_qkv(
         p["attn"], h, pos[:, None], cfg.rope_theta, cfg.use_rope
@@ -447,7 +522,11 @@ def dense_block_decode_selfonly(p, x, pos, k_cache, v_cache, kv_pos,
     update_cache(k_cache, k_new, pos)
     update_cache(v_cache, v_new, pos)
     update_pos(kv_pos, pos, 1)
-    att = _decode_attention(q, k_cache, v_cache, pos, pages)
+    if kernels:
+        att = _decode_attention(q, k_cache, v_cache, pos, pages)
+    else:
+        att = gqa_attention(q, k_cache, v_cache, q_positions=pos[:, None],
+                            kv_positions=kv_pos, kv_valid=kv_pos >= 0)
     return x + attention_out(p["attn"], att), k_cache, v_cache, kv_pos
 
 
@@ -485,14 +564,19 @@ def init_xlstm_pairs(gen: torch.Generator, cfg: ModelConfig, dtype, device):
     }
 
 
-def xlstm_pair(lp, x, cfg: ModelConfig, m_state, s_state, *, decode: bool):
+def xlstm_pair(lp, x, cfg: ModelConfig, m_state, s_state, *, decode: bool,
+               kernels: bool = True):
     """rms_norm -> mLSTM -> residual -> rms_norm -> sLSTM -> residual.
-    Returns (x, the pair's seven state tensors in ``SSM_STATE_KEYS`` order)."""
+    Returns (x, the pair's seven state tensors in ``SSM_STATE_KEYS`` order).
+    The whole-prompt mLSTM runs the ``mlstm_chunk`` kernel, or with
+    ``kernels=False`` the plain chunkwise form in JAX's chunks."""
     hm = rms_norm(x, lp["ln_m"], cfg.norm_eps)
     if decode:
         y, m_state = ssm.mlstm_decode(lp["mlstm"], hm, m_state)
-    else:
+    elif kernels:
         y, m_state = ssm.mlstm_forward_chunked(lp["mlstm"], hm, m_state)
+    else:
+        y, m_state = ssm.mlstm_forward_train(lp["mlstm"], hm)
     x = x + y
     hs = rms_norm(x, lp["ln_s"], cfg.norm_eps)
     slstm = ssm.slstm_decode if decode else ssm.slstm_forward
@@ -531,8 +615,46 @@ def _remat(fn, remat: bool):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
+def embed_lookup(ids, table):
+    """``F.embedding(ids, table)``.  A DTensor table split along the vocab
+    is looked up on each rank's own rows (the ids outside them give 0), so
+    the output is ``Partial`` over the vocab's mesh dims and the table is
+    never gathered along the vocab; its other dims are gathered, and the
+    ids keep their batch split elsewhere."""
+    if not isinstance(table, DTensor):
+        return F.embedding(ids, table)
+    mesh = table.device_mesh
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    table = table.redistribute(mesh, [Shard(0) if v else Replicate()
+                                      for v in vocab])
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    ids = ids.redistribute(mesh, [
+        Replicate() if v or not isinstance(p, Shard) else p
+        for v, p in zip(vocab, ids.placements)])
+    # every rank's lookups add to the table's gradient where the ids split
+    local = table.to_local(grad_placements=[
+        Shard(0) if v else (Partial() if isinstance(p, Shard) else
+                            Replicate())
+        for v, p in zip(vocab, ids.placements)])
+    v0, n = local_offset(table, 0), local.shape[0]
+    lid = ids.to_local().long()
+    inside = (lid >= v0) & (lid < v0 + n)
+    out = F.embedding(torch.where(inside, lid - v0, 0), local)
+    out = out * inside[..., None].to(out.dtype)
+    out_pl = [Partial() if v else p for v, p in zip(vocab, ids.placements)]
+    shape = (*ids.shape, table.shape[1])
+    return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
+
+
 def _gather_last(x, lens):
     """x: (B,S,D); lens: (B,) true lengths -> (B,1,D) at position lens-1."""
+    return local_call(_gather_last_local, "bsd,b->bzd", x, lens, keep="b")
+
+
+def _gather_last_local(x, lens):
     b = x.shape[0]
     idx = torch.clamp(lens.long() - 1, 0, x.shape[1] - 1)
     return x[torch.arange(b, device=x.device), idx][:, None, :]
@@ -565,11 +687,14 @@ class Model:
 
     def init(self, seed: int = 0) -> dict:
         """Seeded random parameters (a ``torch.Generator`` on the model's
-        device; not JAX's numbers — parity tests bridge JAX's instead)."""
+        device; not JAX's numbers — parity tests bridge JAX's instead).  On
+        the ``meta`` device, which has no generator, the leaves carry only
+        their shapes and dtypes (the dry-run's parameter structure)."""
         cfg = self.cfg
         _check_family(cfg)
         dtype, dev = _dtype(cfg), self.device
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(int(seed)))
         params: dict[str, Any] = {
             "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                                   device=dev) * 0.02).to(dtype),
@@ -635,10 +760,10 @@ class Model:
     # ------------------------------------------------------------ embed
 
     def _embed(self, params, tokens, positions):
-        x = params["embed"][tokens.long()]
+        x = embed_lookup(tokens.long(), params["embed"])
         if not self.cfg.use_rope:
-            x = x + params["pos_emb"][positions.long()]
-        return x
+            x = x + embed_lookup(positions.long(), params["pos_emb"])
+        return shard(x, "batch", "seq", "embed")
 
     def head_matrix(self, params):
         return (
@@ -648,7 +773,8 @@ class Model:
 
     def _logits(self, params, x):
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return x @ self.head_matrix(params)
+        logits = matmul(x, self.head_matrix(params), "bsd,dv->bsv")
+        return shard(logits, "batch", "seq", "vocab")
 
     # ------------------------------------------------------------ train
 
@@ -681,7 +807,9 @@ class Model:
             img = batch["embeds"].to(_dtype(cfg))
             n_img = img.shape[1]
             positions = arange_rows(n_img + s_tok)
-            x = torch.cat([img, params["embed"][tokens.long()]], dim=1)
+            x = torch.cat([img, embed_lookup(tokens.long(), params["embed"])],
+                          dim=1)
+            x = shard(x, "batch", "seq", "embed")
             x, aux = self._run_stack_train(params, x, positions)
             x = x[:, n_img:]
         else:
@@ -694,7 +822,8 @@ class Model:
     def forward(self, params, batch: dict):
         """Training forward returning full logits (small configs only)."""
         x, aux = self.hidden(params, batch)
-        return x @ self.head_matrix(params), aux
+        logits = matmul(x, self.head_matrix(params), "bsd,dv->bsv")
+        return shard(logits, "batch", "seq", "vocab"), aux
 
     def _run_stack_train(self, params, x, positions, remat: bool = True):
         """The family's layer stack over the whole sequence, each layer
@@ -711,6 +840,7 @@ class Model:
             body = _remat(body, remat)
             for lp in stack_layers(params["blocks"]):
                 x, a = body(x, lp)
+                x = shard(x, "batch", "seq", "embed")
                 aux = aux + a
             return x, aux
         if cfg.kind == "ssm":
@@ -829,7 +959,8 @@ class Model:
         return cache
 
     @torch.no_grad()
-    def prefill(self, params, batch: dict, cache_len: int):
+    def prefill(self, params, batch: dict, cache_len: int, *,
+                kernels: bool = True, cache: Optional[dict] = None):
         """Process the full prompt; returns (last-position logits, cache).
 
         batch: {"tokens": (B,S), optional "embeds", optional "lens": (B,)}.
@@ -837,6 +968,12 @@ class Model:
         to the text (``lens`` counts the text; the image is added to it),
         or the encoder-decoder's audio frames (B, F, D), which it needs.
         Other families ignore them, as in JAX.
+
+        ``kernels=False`` runs the plain attention and the plain chunkwise
+        mLSTM (JAX's prefill) in place of the flash and mLSTM kernels: the
+        dry-run's plans choose it, on ``meta`` tensors.  ``cache``: an
+        empty cache of ``init_cache``'s shapes to fill (a sharded plan's
+        DTensors), else one is made.
         """
         cfg = self.cfg
         _check_family(cfg)
@@ -846,11 +983,14 @@ class Model:
         lens = batch.get("lens")
         if lens is None:
             lens = torch.full((b,), s, dtype=torch.int32, device=dev)
-        cache = self.init_cache(params, b, cache_len)
+        if cache is None:
+            cache = self.init_cache(params, b, cache_len)
         positions = torch.arange(s, device=dev)[None].expand(b, s)
         if cfg.kind == "vlm" and "embeds" in batch:
             img = batch["embeds"].to(_dtype(cfg))
-            x = torch.cat([img, params["embed"][tokens.long()]], dim=1)
+            x = torch.cat([img, embed_lookup(tokens.long(), params["embed"])],
+                          dim=1)
+            x = shard(x, "batch", "seq", "embed")
             s = x.shape[1]
             positions = torch.arange(s, device=dev)[None].expand(b, s)
             lens = lens + img.shape[1]  # prompt = image tokens + text
@@ -860,21 +1000,25 @@ class Model:
             # every row runs its whole S tokens (the engine prefills ssm
             # prompts one at a time at their exact length)
             for l, lp in enumerate(self.layer_params(params)):
-                x, states = xlstm_pair(lp, x, cfg, None, None, decode=False)
+                x, states = xlstm_pair(lp, x, cfg, None, None, decode=False,
+                                       kernels=kernels)
                 for key, st in zip(SSM_STATE_KEYS, states):
                     cache[key][l] = st
             return self._logits(params, _gather_last(x, lens)), cache
+        attention = "flash" if kernels else "plain"
         if cfg.kind == "encdec":
             x, ks, vs = self._decoder_prefill(params, batch["embeds"], x,
-                                              positions, cache)
+                                              positions, cache, kernels)
         elif cfg.kind == "hybrid":
             x, ks, vs = self._hybrid_prefill(params, x, positions, lens,
-                                             cache)
+                                             cache, kernels)
         else:
             ks, vs = [], []
             for lp in self.layer_params(params):
                 x, (k, v, _) = dense_block_train(lp, x, positions, cfg,
-                                                 attn_mask_lens=lens)
+                                                 attn_mask_lens=lens,
+                                                 attention=attention)
+                x = shard(x, "batch", "seq", "embed")
                 ks.append(k)
                 vs.append(v)
         cache = self._fill_kv(cache, ks, vs, lens, s)
@@ -903,11 +1047,12 @@ class Model:
             enc = enc + gated_mlp(lp["mlp"], h2)
         return rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
 
-    def _decoder_prefill(self, params, frames, x, positions, cache):
+    def _decoder_prefill(self, params, frames, x, positions, cache,
+                         kernels: bool = True):
         """The encoder over ``frames`` (B, F, D) plus ``enc_pos``, then the
         decoder layers over the prompt embeddings ``x``: causal
-        self-attention through flash, cross-attention on the plain
-        attention.  Writes ``cross_k``/``cross_v`` (L, B, F, ...) into the
+        self-attention through flash (with ``kernels=False`` JAX's plain
+        causal attention), cross-attention on the plain attention.  Writes ``cross_k``/``cross_v`` (L, B, F, ...) into the
         cache; returns x and the self-attention K/V per layer."""
         cfg = self.cfg
         enc = frames.to(_dtype(cfg))
@@ -922,7 +1067,12 @@ class Model:
             hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = attention_qkv(lp["attn"], hn, positions,
                                     cfg.rope_theta, cfg.use_rope)
-            x = x + attention_out(lp["attn"], _prefill_attention(q, k, v, 0))
+            if kernels:
+                att = _prefill_attention(q, k, v, 0)
+            else:
+                att = attention_any(q, k, v, q_positions=positions,
+                                    kv_positions=positions)
+            x = x + attention_out(lp["attn"], att)
             hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
             kx = project_heads(enc, lp["xattn"]["wk"])
             vx = project_heads(enc, lp["xattn"]["wv"])
@@ -938,14 +1088,22 @@ class Model:
             vxs.append(vx)
         # JAX replaces the cross cache with the frames' own (F may differ
         # from the config's n_audio_frames)
-        cache["cross_k"], cache["cross_v"] = torch.stack(kxs), torch.stack(vxs)
+        cross_k, cross_v = torch.stack(kxs), torch.stack(vxs)
+        if isinstance(cache["cross_k"], DTensor):
+            cross_k = cross_k.redistribute(cache["cross_k"].device_mesh,
+                                           cache["cross_k"].placements)
+            cross_v = cross_v.redistribute(cache["cross_v"].device_mesh,
+                                           cache["cross_v"].placements)
+        cache["cross_k"], cache["cross_v"] = cross_k, cross_v
         return x, ks, vs
 
-    def _hybrid_prefill(self, params, x, positions, lens, cache):
+    def _hybrid_prefill(self, params, x, positions, lens, cache,
+                        kernels: bool = True):
         """Each super block: its Mamba2 layers (chunkwise SSD, every row's
         whole S, padding included, as JAX runs them), writing their final
         states into the cache, then the shared attention block through
-        flash.  Returns x and the shared block's K/V per application."""
+        flash (with ``kernels=False`` JAX's plain masked attention).
+        Returns x and the shared block's K/V per application."""
         cfg = self.cfg
         shared = params["shared_attn"]
         ks, vs = [], []
@@ -956,9 +1114,9 @@ class Model:
                 x = x + y
                 cache["mamba_h"][l, j] = st
                 cache["mamba_conv"][l, j] = conv
-            x, (k, v, _) = dense_block_train(shared, x, positions, cfg,
-                                             attn_mask_lens=lens,
-                                             padded_rows=True)
+            x, (k, v, _) = dense_block_train(
+                shared, x, positions, cfg, attn_mask_lens=lens,
+                padded_rows=True, attention="flash" if kernels else "plain")
             ks.append(k)
             vs.append(v)
         return x, ks, vs
@@ -1110,9 +1268,12 @@ class Model:
         return cache
 
     @torch.no_grad()
-    def decode(self, params, cache: dict, tokens, pos):
+    def decode(self, params, cache: dict, tokens, pos, *,
+               kernels: bool = True):
         """One decode step.  tokens: (B,1) int; pos: (B,) positions of the
-        new token.  Returns (logits (B,1,V), cache updated in place)."""
+        new token.  Returns (logits (B,1,V), cache updated in place).
+        ``kernels=False`` runs JAX's masked attention over the cache in
+        place of the paged kernel (the dry-run's plans)."""
         cfg = self.cfg
         _check_family(cfg)
         x = self._embed(params, tokens, pos[:, None])
@@ -1132,11 +1293,13 @@ class Model:
         )
         # one page table for every layer of a step on a full cache
         b, t = cache["k"].shape[1:3]
-        pages = None if ring else slot_pages(b, t, pos)
+        pages = (None if ring or not kernels
+                 or isinstance(cache["k"], DTensor) else slot_pages(b, t, pos))
         kv = [(cache["k"][l], cache["v"][l], cache["kv_pos"][l])
               for l in range(cache["k"].shape[0])]
         if cfg.kind == "encdec":
-            x = self._decoder_decode(params, x, pos, kv, cache, pages)
+            x = self._decoder_decode(params, x, pos, kv, cache, pages,
+                                     kernels)
         elif cfg.kind == "hybrid":
             shared = params["shared_attn"]
             for l, group in enumerate(self.layer_params(params)):
@@ -1149,16 +1312,17 @@ class Model:
                     st.copy_(new_st)
                     conv.copy_(new_conv)
                 x = dense_block_decode(shared, x, pos, *kv[l], cfg, ring,
-                                       pages)[0]
+                                       pages, kernels)[0]
         else:
             for lp, layer_kv in zip(self.layer_params(params), kv):
                 x = dense_block_decode(lp, x, pos, *layer_kv, cfg, ring,
-                                       pages)[0]
+                                       pages, kernels)[0]
         if self.debug_checks and not ring:
             check_slot_contiguous(cache["kv_pos"], pos)
         return self._logits(params, x), cache
 
-    def _decoder_decode(self, params, x, pos, kv, cache, pages):
+    def _decoder_decode(self, params, x, pos, kv, cache, pages,
+                        kernels: bool = True):
         """The encoder-decoder's decode layers: self-attention through the
         paged kernel (``dense_block_decode_selfonly``), then
         cross-attention on the plain attention over the cached
@@ -1170,7 +1334,7 @@ class Model:
         q_pos = torch.full((b, 1), f + 1, dtype=torch.int32, device=x.device)
         for l, lp in enumerate(self.layer_params(params)):
             x = dense_block_decode_selfonly(lp, x, pos, *kv[l], cfg,
-                                            pages)[0]
+                                            pages, kernels)[0]
             hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
             qx = project_heads(hx, lp["xattn"]["wq"])
             xat = gqa_attention(qx, cache["cross_k"][l], cache["cross_v"][l],

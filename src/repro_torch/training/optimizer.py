@@ -10,6 +10,10 @@ Where JAX returns new arrays, ``adamw_update`` updates the parameters and
 moments in place, one leaf at a time under ``torch.no_grad()``: at full
 width a stacked leaf is 671 M elements, 2.7 GB per float32 temporary, so
 only one leaf's temporaries exist at once.
+
+The trees may hold DTensors (a sharded plan): each leaf's update runs on
+its shards, the moments laid out as the parameters (ZeRO), and the global
+norm sums the leaves' squares as plain scalars on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -68,10 +73,15 @@ def lr_schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
+def _square_sum(x):
+    """sum(x^2) of one leaf; a DTensor leaf's sum is reduced to a plain
+    scalar on every rank (a collective every rank calls, leaf by leaf)."""
+    s = torch.sum(torch.square(x.float()))
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
 def global_norm(tree):
-    return torch.sqrt(
-        sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
-    )
+    return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
 
 
 @torch.no_grad()

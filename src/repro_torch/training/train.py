@@ -12,9 +12,11 @@ kernel, as the JAX package trains.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import Model
+from repro_torch.models.shardlib import local_call
 from repro_torch.models.ssm import divisor_chunk
 from repro_torch.training.optimizer import AdamState, AdamWConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -37,13 +39,27 @@ def lm_loss(logits, tokens, loss_mask=None, moe_aux=0.0, aux_w: float = 0.01):
 
 def _chunk_nll(x_c, head, t_c, m_c):
     """Summed masked NLL of one sequence chunk: the (B,c,V) float32 logits
-    exist only inside this call."""
+    exist only inside this call.  On DTensors each batch shard sums its own
+    rows against the whole head (gathered), and the sum over the shards is
+    DTensor's reduction."""
+    if isinstance(x_c, DTensor):
+        rows = local_call(_rows_nll, "bsd,~,bs,bs->b", x_c, head, t_c, m_c,
+                          keep="b")
+        return rows.sum()
     # float32 products of the (bf16) inputs, as JAX's einsum with
     # preferred_element_type=float32: the logits are never rounded to bf16
     lg = x_c.float() @ head.float()
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.take_along_dim(lg, t_c[..., None], dim=-1)[..., 0]
     return torch.sum((logz - gold) * m_c)
+
+
+def _rows_nll(x_c, head, t_c, m_c):
+    """Per-row summed masked NLL (B,) of one chunk."""
+    lg = x_c.float() @ head.float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.take_along_dim(lg, t_c[..., None], dim=-1)[..., 0]
+    return torch.sum((logz - gold) * m_c, dim=-1)
 
 
 def chunked_lm_loss(
@@ -105,12 +121,20 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
         with torch.enable_grad():
             loss = loss_fn(tree, batch)
         grads = torch.autograd.grad(loss, leaves)
+        # a sharded plan's gradients take their parameters' layout (a
+        # reduction over the shards that computed partial sums)
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if isinstance(g, DTensor) else g
+                 for g, p in zip(grads, leaves)]
         del tree, leaves
         grads = tree_unflatten(params, grads)
         params, opt_state, metrics = adamw_update(
             opt_cfg, grads, opt_state, params
         )
-        metrics = dict(metrics, loss=loss.detach())
+        loss = loss.detach()
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
+        metrics = dict(metrics, loss=loss)
         return params, opt_state, metrics
 
     return train_step

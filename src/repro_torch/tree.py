@@ -41,3 +41,16 @@ def tree_unflatten(tree, leaves):
         return next(it)
 
     return fill(tree)
+
+
+def tree_map_with_path(fn, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of a tree; ``path`` holds the
+    dict keys (as str) and list indices down to the leaf, as
+    ``jax.tree_util.tree_map_with_path`` gives them."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, path + (str(i),))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)

@@ -38,11 +38,17 @@ MODULES = [
     "repro_torch.kernels.ref",
     "repro_torch.kvcache",
     "repro_torch.launch",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.op_analysis",
     "repro_torch.launch.serve",
+    "repro_torch.launch.sharding",
+    "repro_torch.launch.specs",
     "repro_torch.launch.train",
     "repro_torch.models",
     "repro_torch.models.layers",
     "repro_torch.models.params",
+    "repro_torch.models.shardlib",
     "repro_torch.models.ssm",
     "repro_torch.models.transformer",
     "repro_torch.predictor",

@@ -444,7 +444,11 @@ def test_launcher_trains_on_the_cpu():
 
 @pytest.mark.parametrize("mesh", ["debug", "prod", "multipod"])
 def test_launcher_refuses_meshes(mesh):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
+    """A sharded mesh needs a process group: outside torchrun, with none
+    initialised, the launcher refuses it (a group of the wrong size is
+    refused in tests/test_torch_shardlib.py)."""
+    assert "RANK" not in os.environ
+    with pytest.raises(RuntimeError, match="torchrun"):
         launcher.run(["--mesh", mesh, "--device", "cpu"])
 
 
