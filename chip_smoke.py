@@ -164,13 +164,28 @@ Phases, each of which fails the run (exit code 1) on error:
    and (b)), ``launch/dryrun.py``'s ``run_pair`` for every assigned arch
    at ``DRYRUN_ROWS`` (train_4k and decode_32k) on the 16x16 fake mesh at
    full width, every pair ``ok``; per pair its per-device FLOPs,
-   collective bytes and argument bytes.
+   collective bytes and argument bytes;
+12. the frozen engine at full width, bf16, random weights from a seed,
+   each model freed before the next: ``repro_torch.engine.
+   ReferenceServeEngine`` (the pre-rewrite engine: one B 1 prefill per
+   admission, a host round trip per decode step) serves phase 5's agents
+   (max_batch 8, cache_len 512, justitia) for (a) granite-3-2b at pool
+   4096 and at pool 1024, which must swap (``FROZEN_RUNS``), and (b)
+   xlstm-350m at pool 4096; every agent completes its budget, flash
+   launches n_layers x prefills and paged decode n_layers x decode steps
+   (the mLSTM 12 x prefills at xlstm); then ``ServeEngine`` serves the
+   same agents at the same pool, and its completions, clock, counters
+   (``FROZEN_COUNTERS``) and event rows without token values must equal
+   the frozen engine's; the wall seconds of both runs and their ratio are
+   logged beside the card, with the share of equal sampled tokens (bf16,
+   not gated).
 
-Each full-width phase and each phase-7, phase-8 and phase-9 run zeroes the launch
-counts just before it serves and reads them just after; each phase's wall
-time is logged when the next starts.  The last lines are the card's name and power
-limit, one ``{"kernels": ...}`` JSON line (launches summed over phases 5,
-6, 8, 9 and 11 (a); phases 10 and 11 (b) launch none; max |d| the larger
+Each full-width phase and each phase-7, phase-8, phase-9 and phase-12 run
+zeroes the launch counts just before it serves and reads them just after;
+each phase's wall time is logged when the next starts.  The last lines are
+the card's name and power limit, one ``{"kernels": ...}`` JSON line
+(launches summed over phases 5, 6, 8, 9, 11 (a) and 12; phases 10 and 11
+(b) launch none; max |d| the larger
 of the granite and llama2-7b shapes' in bfloat16) and, last, ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -339,6 +354,10 @@ SHARDED_TRAIN_TOL = 1e-4
 #: phase 11 (c): the dry-run's rows run on the card's host
 DRYRUN_ROWS = ("train_4k", "decode_32k")
 DRYRUN_TIMEOUT_S = 600
+#: phase 12: the frozen engine's pools per arch (after the first, each
+#: must swap: 1024 does, 5 times, for ``serving_agents``)
+FROZEN_RUNS = {"granite-3-2b": (4096, 1024), "xlstm-350m": (4096,)}
+FROZEN_COUNTERS = ("tokens", "prefills", "swaps", "decode_steps")
 
 
 def log(msg: str) -> None:
@@ -2653,6 +2672,112 @@ def dryrun_rows(started: tuple, card: str) -> None:
             f"{rec['memory']['argument_bytes']} ({rec['wall_s']} s)")
 
 
+# ----------------------------------------------------------------- phase 12
+
+
+def serve_frozen_pair(torch, pkg, ops, model, params, pool: int) -> dict:
+    """Phase 12: ``serving_agents`` through the frozen engine, then through
+    ``ServeEngine``, at one pool; per engine its outcome (completions,
+    clock, ``FROZEN_COUNTERS``), event rows, tokens per agent, budgets,
+    wall seconds and launch counts (zeroed just before the run, read just
+    after it)."""
+    out = {}
+    for name in ("ReferenceServeEngine", "ServeEngine"):
+        events = EventLog()
+        eng = pkg[name](
+            model, params, pkg["make_scheduler"]("justitia", float(pool)),
+            pool_tokens=pool, max_batch=8, cache_len=512, listener=events,
+        )
+        agents, budgets = serving_agents(pkg, model.cfg.vocab)
+        for a in agents:
+            eng.submit_agent(a)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = dict(
+            outcome={"completions": dict(done), "now": eng.now,
+                     **{k: eng.metrics[k] for k in FROZEN_COUNTERS}},
+            rows=events.rows, tokens=events.tokens, budgets=budgets,
+            wall=wall,
+            launches={"paged_attention": ops.paged_gqa_decode.launches,
+                      "flash_attention": ops.flash_prefill.launches,
+                      "mlstm_chunk": ops.mlstm_chunk.launches})
+        del eng
+    return out
+
+
+def frozen_engine(torch, pkg, ops, arch: str, card: str) -> dict:
+    """Phase 12: ``arch`` at full width, bf16, random weights, served by
+    the frozen engine at each pool of ``FROZEN_RUNS`` and held to
+    ``ServeEngine`` on the same agents; returns the launch counts of every
+    run."""
+    cfg = pkg["get_config"](arch)
+    model, params, _ = build_full_width(torch, pkg, cfg)
+    total = {"paged_attention": 0, "flash_attention": 0, "mlstm_chunk": 0}
+    for i, pool in enumerate(FROZEN_RUNS[arch]):
+        runs = serve_frozen_pair(torch, pkg, ops, model, params, pool)
+        ref, new = runs["ReferenceServeEngine"], runs["ServeEngine"]
+        o = ref["outcome"]
+        if cfg.kind == "ssm":
+            want = {"paged_attention": 0, "flash_attention": 0,
+                    "mlstm_chunk": (cfg.n_layers // cfg.slstm_every)
+                    * o["prefills"]}
+        else:
+            want = {"paged_attention": cfg.n_layers * o["decode_steps"],
+                    "flash_attention": cfg.n_layers * o["prefills"],
+                    "mlstm_chunk": 0}
+        pairs = [(a, b) for aid in sorted(ref["tokens"])
+                 for a, b in zip(ref["tokens"][aid],
+                                 new["tokens"].get(aid, []))]
+        match = sum(a == b for a, b in pairs) / max(len(pairs), 1)
+        log(f"  pool {pool}: completed={len(o['completions'])} "
+            f"now={o['now']} prefills={o['prefills']} swaps={o['swaps']} "
+            f"decode_steps={o['decode_steps']} tokens={o['tokens']}")
+        log(f"    launches: frozen {ref['launches']} (want {want}), "
+            f"ServeEngine {new['launches']}")
+        log(f"    wall ({card}): frozen engine {ref['wall']:.3f} s, "
+            f"ServeEngine {new['wall']:.3f} s, ratio "
+            f"{ref['wall'] / new['wall']:.2f}; decode iterations/s "
+            f"{o['decode_steps'] / ref['wall']:.2f} against "
+            f"{o['decode_steps'] / new['wall']:.2f}; sampled tokens equal "
+            f"in {match:.3f} of {len(pairs)} (logged, not gated)")
+        for name, run in runs.items():
+            if set(run["outcome"]["completions"]) != set(run["budgets"]):
+                raise AssertionError(f"{name}: agents did not complete")
+            for aid, budget in run["budgets"].items():
+                got = run["tokens"].get(aid, [])
+                if len(got) != budget:
+                    raise AssertionError(f"{name}: agent {aid} made "
+                                         f"{len(got)} tokens, budget {budget}")
+                if not all(0 <= t < cfg.vocab for t in got):
+                    raise AssertionError(f"{name}: agent {aid}: token id "
+                                         "out of range")
+        if ref["launches"] != want:
+            raise AssertionError(f"frozen engine launched {ref['launches']}"
+                                 f", not {want}")
+        if i > 0 and o["swaps"] == 0:
+            raise AssertionError(f"pool {pool} did not force a swap")
+        if new["outcome"] != o:
+            raise AssertionError(f"ServeEngine {new['outcome']} != frozen "
+                                 f"engine {o}")
+        for j, (a, b) in enumerate(zip(new["rows"], ref["rows"])):
+            if a != b:
+                raise AssertionError(f"event {j}: ServeEngine {a} != frozen"
+                                     f" engine {b}")
+        if len(new["rows"]) != len(ref["rows"]):
+            raise AssertionError(f"{len(new['rows'])} events != "
+                                 f"{len(ref['rows'])}")
+        for run in runs.values():
+            for name, n in run["launches"].items():
+                total[name] += n
+    del model, params
+    free_model(torch)
+    return total
+
+
 def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     """The before side of a comparison made in one chip call: times the
     kernels of another tree's port (an earlier commit unpacked beside this
@@ -2723,6 +2848,7 @@ def main(argv: list) -> int:
     if argv:
         return run_baseline(torch, pkg, ops, ref, tree)
     from repro_torch import api
+    from repro_torch.engine import ReferenceServeEngine
     from repro_torch.kernels import mlstm_chunk as mlstm
     from repro_torch.kernels.flash_attention import flash_path
     from repro_torch.kernels.flash_attention import smem_bytes as flash_smem
@@ -2730,6 +2856,7 @@ def main(argv: list) -> int:
     from repro_torch.kernels.paged_attention import split_plan
     from repro_torch.models.transformer import decode_page
 
+    pkg["ReferenceServeEngine"] = ReferenceServeEngine
     clock = PhaseClock()
     clock.start("1. device")
     card = card_line()
@@ -2892,6 +3019,13 @@ def main(argv: list) -> int:
         raise
     log(f"  (c) the dry-run rows {', '.join(DRYRUN_ROWS)} at full width")
     dryrun_rows(rows, card)
+
+    clock.start("12. the frozen engine at full width, held to ServeEngine")
+    for label, arch in zip("ab", FROZEN_RUNS):
+        log(f"  ({label}) {arch} through ReferenceServeEngine, then "
+            "ServeEngine")
+        for name, n in frozen_engine(torch, pkg, ops, arch, card).items():
+            launches[name] += n
     clock.start(None)
 
     sources = {

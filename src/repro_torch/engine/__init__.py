@@ -1,5 +1,5 @@
 """Continuous-batching serving engine of the port (vLLM semantics, PyTorch
-device path)."""
+device path), and the frozen pre-rewrite engine it is pinned against."""
 
 from repro_torch.engine.engine import (
     EngineAgent,
@@ -7,10 +7,12 @@ from repro_torch.engine.engine import (
     EngineStalledError,
     ServeEngine,
 )
+from repro_torch.engine.reference import ReferenceServeEngine
 
 __all__ = [
     "EngineAgent",
     "EngineRequest",
     "EngineStalledError",
+    "ReferenceServeEngine",
     "ServeEngine",
 ]

@@ -1,10 +1,8 @@
 """Discrete-event cluster simulator + metrics (paper-scale experiments).
 
-``ClusterSim`` is the event-indexed production core.  The JAX package's
-frozen pre-rewrite oracle, ``repro.sim.reference.ReferenceClusterSim``, is
-not copied here: the port's sim is held against the JAX package's
-``ClusterSim`` by its tests, and the frozen oracle waits with the frozen
-engine oracle (ROADMAP §1 item 4).
+``ClusterSim`` is the event-indexed production core;
+``reference.ReferenceClusterSim`` is the retained pre-rewrite oracle, a
+verbatim copy of the JAX package's, that the port's tests pin it against.
 """
 
 from repro_torch.sim.cluster import ClusterSim, SimAgent, SimResult
@@ -15,9 +13,11 @@ from repro_torch.sim.metrics import (
     fairness_stats,
     jct_stats,
 )
+from repro_torch.sim.reference import ReferenceClusterSim
 
 __all__ = [
     "ClusterSim",
+    "ReferenceClusterSim",
     "SimAgent",
     "SimResult",
     "FairnessStats",

@@ -49,7 +49,7 @@ Pool occupancy and the saturation probe remain O(running) sweeps — but
 ``running`` is bounded by the pool size M, not by the number of agents, so
 the loop stays O(events · log n) in workload size.  The sweeps reproduce
 the *exact float arithmetic* of the retained pre-rewrite core
-(``repro.sim.reference.ReferenceClusterSim``, same ordered sums over the
+(``repro_torch.sim.reference.ReferenceClusterSim``, same ordered sums over the
 same stable decode form): saturation and finish events frequently land
 within 1e-10 of each other under contention, and both cores must order
 them identically or swap decisions diverge.  The equivalence property

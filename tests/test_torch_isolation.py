@@ -30,6 +30,7 @@ MODULES = [
     "repro_torch.core",
     "repro_torch.core.gps",
     "repro_torch.engine",
+    "repro_torch.engine.reference",
     "repro_torch.kernels",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.mlstm_chunk",
@@ -59,6 +60,7 @@ MODULES = [
     "repro_torch.sim",
     "repro_torch.sim.cluster",
     "repro_torch.sim.metrics",
+    "repro_torch.sim.reference",
     "repro_torch.training",
     "repro_torch.training.checkpoint",
     "repro_torch.training.data",
