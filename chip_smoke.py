@@ -15,11 +15,14 @@ Phases, each of which fails the run (exit code 1) on error:
    register and shared-memory use and, where ``cuobjdump`` exists, the
    tensor-core instructions (HGMMA, HMMA) in each kernel's SASS; a
    tensor-core kernel (flash's, the mLSTM's two passes) without HGMMA
-   fails the run;
+   fails the run, and so does a missing or HGMMA-free hd-80 instantiation
+   of flash's (``FLASH_TC_HD80``);
 3. kernels: every kernel against its plain PyTorch version on the same
    inputs on the card (max |d| <= 2e-5 at float32, <= 3e-2 at bfloat16, the
    tolerances of tests/test_kernels.py; flash prefill logs the path,
-   tensor_core or cuda_core, that each case takes, paged decode its split;
+   tensor_core or cuda_core, that each case takes, and its bf16 cases at hd
+   80 (a single tile, qpk 1, 2 and 4, a window of 100 that cuts a tile)
+   must take tensor_core; paged decode logs its split;
    the chunkwise mLSTM on its output and its final state, from the empty
    and from a given state, at any length, each case on the path its rule
    gives and, where that is tensor_core, on the cuda_core kernel too; its
@@ -192,7 +195,8 @@ beside it, the script exits non-zero and prints no result.
 
 ``--baseline DIR`` builds the kernels of the port under DIR (an earlier
 commit unpacked beside this one), times its three kernels by the method
-of phase 3, profiles its granite prefill pass and a decode step after it
+of phase 3 (at granite-3-2b's shapes, the zoo's and the families', hd
+80 included), profiles its granite prefill pass and a decode step after it
 as phase 5 does and its xlstm-350m prefill as phase 6 does, so that one
 chip call can hold a change against its parent; it prints no result
 line.
@@ -228,6 +232,9 @@ GRANITE = dict(n_layers=40, nh=32, n_kv=8, hd=64)
 #: kernel functions that must hold tensor-core (HGMMA) instructions
 TENSOR_CORE_KERNELS = ("flash_tc_kernel", "mlstm_chunk_states_kernel",
                        "mlstm_chunk_outputs_kernel")
+#: flash's hd-80 instantiations (q heads per block 1 and 2), which must be
+#: in the SASS with HGMMA
+FLASH_TC_HD80 = tuple(f"flash_tc_kernel<80, {wg}>" for wg in (1, 2))
 #: xlstm-350m's prefill of one prompt at the longest cache
 XLSTM = dict(b=1, nh=4, s=512, hd=256)
 #: phase 3's shapes of the decoder-only zoo's full-width archs: name ->
@@ -305,7 +312,8 @@ ZOO_CUTS = {"mixtral-8x7b": (16, "32 layers are 93 GB at bf16, more than "
 FAMILY_SHAPES = {
     # qpk 7; 2,880 anyres image embeddings + 256 text tokens
     "llava-next-34b": (2, 56, 8, 128, 3136, 4096),
-    # MHA at hd 80 (flash's CUDA-core kernel); 1,024 tokens + 64 steps
+    # MHA at hd 80 (flash's tensor-core kernel, one head a block); 1,024
+    # tokens + 64 steps
     "zamba2-2.7b": (4, 32, 32, 80, 1024, 1152),
     # MHA; a 32-token decoder prompt, padded to flash's 64-token block
     "whisper-tiny": (4, 6, 6, 64, 64, 128),
@@ -575,6 +583,14 @@ def check_flash(ops, ref, torch, gen, flash_path) -> dict:
     fam = torch.Generator(device="cuda").manual_seed(204)
     for arch, (b, nh, n_kv, hd, s, _) in FAMILY_SHAPES.items():
         cases.append((fam, arch, b, s, nh, n_kv, hd, 0))
+    # hd 80 on the tensor cores (a generator of their own, so every earlier
+    # input stays the parent's): a single tile; qpk 4 with a window of 100
+    # that cuts a tile; qpk 2; B 1 at qpk 1
+    hd80 = torch.Generator(device="cuda").manual_seed(206)
+    cases += [(hd80, "", 1, 64, 4, 1, 80, 0),
+              (hd80, "", 2, 320, 8, 2, 80, 100),
+              (hd80, "", 1, 192, 4, 2, 80, 0),
+              (hd80, "", 1, 256, 4, 4, 80, 0)]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for gen_case, label, b, s, nh, n_kv, hd, window in cases:
@@ -592,11 +608,15 @@ def check_flash(ops, ref, torch, gen, flash_path) -> dict:
             err = (got.float() - want.float()).abs().max().item()
             del want
             name = str(dtype).split(".")[-1]
+            path = flash_path(dtype, hd, s)
             log(f"  flash {name:8s} {label + ': ' if label else ''}b={b} "
                 f"S={s} nh={nh} n_kv={n_kv} hd={hd} window={window} "
-                f"path={flash_path(dtype, hd, s)} max|d|={err:.3g}")
+                f"path={path} max|d|={err:.3g}")
             if not err <= TOL[name]:
                 raise AssertionError(f"flash prefill differs by {err}")
+            if hd == 80 and path != ("tensor_core" if dtype == torch.bfloat16
+                                     else "cuda_core"):
+                raise AssertionError(f"flash at hd 80 {name} took {path}")
             if label and dtype == torch.bfloat16:
                 errs[label] = err
     q = torch.zeros((1, 100, 2, 64), device="cuda")
@@ -2791,6 +2811,9 @@ def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     log_timing("paged_attention", time_paged(ops, ref, torch, gen))
     log_timing("flash_attention", time_flash(ops, ref, torch, gen))
+    for name, t in {**time_zoo(ops, ref, torch),
+                    **time_families(ops, ref, torch)}.items():
+        log_timing(name, t)
     for s_len in (XLSTM["s"], 256):
         log_timing("mlstm_chunk", time_mlstm(ops, ref, torch, gen, s_len))
     cfg = pkg["get_config"]("granite-3-2b")
@@ -2888,6 +2911,12 @@ def main(argv: list) -> int:
                 f"  {fn[:90]}")
             if any(t in fn for t in TENSOR_CORE_KERNELS) and not c["HGMMA"]:
                 raise AssertionError(f"tensor-core kernel {fn} has no HGMMA")
+        if name == "flash_attention":
+            for inst in FLASH_TC_HD80:
+                n = sum(c["HGMMA"] for fn, c in counts.items() if inst in fn)
+                log(f"  flash_attention {inst}: HGMMA {n}")
+                if not n:
+                    raise AssertionError(f"{inst} has no HGMMA in the SASS")
     g, hd = GRANITE, XLSTM["hd"]
     qpk = g["nh"] // g["n_kv"]
     log(f"  dynamic shared memory per block: paged_attention "

@@ -24,26 +24,31 @@
 // Two instantiations, chosen by the launcher's explicit rule
 // (`flash_path` in kernels/flash_attention.py):
 //
-// * tensor_core: bf16 with hd in {32, 64, 128} and S % 64 == 0.  A work
-//   item is a 64-row q tile of `heads` q heads that share a kv head (4 at
-//   granite; 2 at hd 128, whose output accumulator would not fit the
-//   registers of 4 warpgroups) for one batch row; items are ordered longest
-//   causal rows first.  The grid is persistent, one block an SM walking its
-//   share of the items: one consumer warpgroup per q head and one producer
-//   warp.  The producer keeps two q buffers and a ring of four K/V stages
-//   full by TMA over 4-D tensor maps (hd, heads, S, B) with the 128-byte
-//   swizzle (64-byte at hd 32), signalled by mbarriers, refilling a buffer
-//   once every warpgroup has released it; so each K/V tile crosses into
-//   shared memory once for all the heads, and the next item's q and K/V
-//   tiles arrive while the current item computes.  S = Q K^T is a chain of
-//   wgmma m64n64k16 with both operands in shared memory (K-major
-//   descriptors matching the TMA swizzle); the online softmax runs on the
-//   f32 accumulator fragments (a row lives in the four threads of a quad:
-//   max and sum reduce over shuffles 1 and 2), with the scale folded into
-//   the exponent's FMA; P goes to bf16 in registers and O += P V is a
-//   wgmma with A from registers and B the V tile read MN-major (transpose
-//   bit set).  The normalised output goes back through the warpgroup's q
-//   buffer, in the tensor map's swizzled layout, and out by TMA stores.
+// * tensor_core: bf16 with hd in {32, 64, 80, 128} and S % 64 == 0.  A
+//   work item is a 64-row q tile of `heads` q heads that share a kv head
+//   (4 at granite; 2 at hd 80 and 128, whose output accumulators would not
+//   fit the 96 registers a thread of 4 warpgroups gets: at hd 80 ptxas
+//   spills and serializes the wgmma) for one batch row; items are ordered
+//   longest causal rows first.  The grid is persistent, one block an SM
+//   walking its share of the items: one consumer warpgroup per q head and
+//   one producer warp.  The producer keeps two q buffers and a
+//   ring of four K/V stages full by TMA over 4-D tensor maps (hd, heads,
+//   S, B) with the 128-byte swizzle (64-byte at hd 32; at hd 80 a
+//   64-column block with the 128-byte swizzle and a 16-column block with
+//   the 32-byte one, each through maps of its own: `Layout`), signalled by
+//   mbarriers, refilling a buffer once every warpgroup has released it; so
+//   each K/V tile crosses into shared memory once for all the heads, and
+//   the next item's q and K/V tiles arrive while the current item
+//   computes.  S = Q K^T is a chain of wgmma m64n64k16 with both operands
+//   in shared memory (K-major descriptors matching the TMA swizzle); the
+//   online softmax runs on the f32 accumulator fragments (a row lives in
+//   the four threads of a quad: max and sum reduce over shuffles 1 and 2),
+//   with the scale folded into the exponent's FMA; P goes to bf16 in
+//   registers and O += P V is a wgmma with A from registers and B the V
+//   tile read MN-major (transpose bit set; at hd 80 an m64n64 over the
+//   first block and an m64n16 over the second).  The normalised output
+//   goes back through the warpgroup's q buffer, in the tensor maps'
+//   swizzled layout, and out by TMA stores.
 // * cuda_core: every other input (float32, where TF32 would break the
 //   2e-5 parity of the float32 engines, and bf16 at any other hd or S).
 //   One block per (q tile, q head, batch row) keeps its q tile and an f32
@@ -241,24 +246,44 @@ using namespace hopper;
 constexpr int kRows = 64;    // q rows of a warpgroup's tile; kv tokens a tile
 constexpr int kStages = 4;   // K/V ring depth
 
-template <int HD>
-__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (HD == 32) {
+  if constexpr (N == 32) {
     wgmma_rs_n32(d, a, db);
-  } else if constexpr (HD == 64) {
+  } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a, db);
   } else {
     wgmma_rs_n128(d, a, db);
   }
 }
 
+// A 64 x HD bf16 tile in shared memory: kMain column blocks of
+// kSwizzle / 2 columns, each 64 rows of kSwizzle bytes in that swizzle,
+// and, where HD is not a whole number of them (hd 80 = 64 + 16), a tail
+// block of the last 16 columns, 64 rows of 32 bytes in the 32-byte
+// swizzle.  The tensor cores see the tail as one more k16 step of Q K^T
+// and one m64n16 product of P V, so no padded column is loaded or
+// multiplied.
 template <int HD>
 struct Layout {
   static constexpr int kSwizzle = HD >= 64 ? 128 : 64;  // bytes of an atom row
   static constexpr int kColBlock = kRows * kSwizzle;  // 64-row column block
-  static constexpr int kTile = HD * 2 / kSwizzle * kColBlock;  // 64 x HD bf16
+  static constexpr int kMain = HD * 2 / kSwizzle;     // whole column blocks
+  static constexpr int kMainCols = kMain * kSwizzle / 2;
+  static constexpr int kTailCols = HD - kMainCols;    // 16 at hd 80, else 0
+  static constexpr int kTailSwizzle = 32;             // bytes of a tail row
+  static constexpr int kTailOff = kMain * kColBlock;  // the tail block
+  static constexpr int kTile = kTailOff + kRows * kTailCols * 2;  // 64 x HD
+  static_assert(kTailCols == 0 || kTailCols * 2 == kTailSwizzle,
+                "a tail of one 32-byte swizzle atom at most");
+};
+
+// the tensor maps of the tail block (hd 80's columns 64-79: a box of 16
+// columns in the 32-byte swizzle); unused at the other head dims
+struct TailMaps {
+  CUtensorMap q, k, v, o;
 };
 
 template <int HD, int WG>
@@ -315,11 +340,13 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_o, int n_qt, int batch, int n_kv,
-    int qpk, int window, float scale_log2) {
+    int qpk, int window, float scale_log2,
+    const __grid_constant__ TailMaps tail) {
   using L = Layout<HD>;
   constexpr int SW = L::kSwizzle;
-  constexpr int CB = HD * 2 / SW;    // column blocks of a tile
-  constexpr int KSTEPS = HD / 16;    // k16 steps of Q K^T
+  constexpr int TSW = L::kTailSwizzle;
+  constexpr int CB = L::kMain;       // whole column blocks of a tile
+  constexpr int KSTEPS = L::kMainCols / 16;  // k16 steps of Q K^T in them
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* q_s = base;                       // 2 buffers x WG tiles
@@ -366,6 +393,10 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
                      &tm_q, &q_full[qb], cb * (SW / 2), it.hq0 + h,
                      it.iq * kRows, it.b);
           }
+          if constexpr (L::kTailCols > 0) {
+            tma_load(q_s + (qb * WG + h) * L::kTile + L::kTailOff, &tail.q,
+                     &q_full[qb], 0, it.hq0 + h, it.iq * kRows, it.b);
+          }
         }
         for (int i = 0; i < it.n_kt; ++i, ++tile) {
           const int stage = tile % kStages;
@@ -381,6 +412,12 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
             tma_load(dst + L::kTile + cb * L::kColBlock, &tm_v,
                      &kv_full[stage], cb * (SW / 2), it.hk,
                      (it.kt0 + i) * kRows, it.b);
+          }
+          if constexpr (L::kTailCols > 0) {
+            tma_load(dst + L::kTailOff, &tail.k, &kv_full[stage], 0, it.hk,
+                     (it.kt0 + i) * kRows, it.b);
+            tma_load(dst + L::kTile + L::kTailOff, &tail.v, &kv_full[stage],
+                     0, it.hk, (it.kt0 + i) * kRows, it.b);
           }
         }
       }
@@ -431,6 +468,11 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
         const uint32_t off = (kk * 32) / SW * L::kColBlock + (kk * 32) % SW;
         wgmma_ss_n64<0, 0>(s, desc<SW>(q_addr + off, 16, 8 * SW),
                      desc<SW>(k_addr + off, 16, 8 * SW), kk > 0);
+      }
+      if constexpr (L::kTailCols > 0) {
+        // the tail block's one k16 step: its whole 32-byte rows
+        wgmma_ss_n64<0, 0>(s, desc<TSW>(q_addr + L::kTailOff, 16, 8 * TSW),
+                           desc<TSW>(k_addr + L::kTailOff, 16, 8 * TSW), 1);
       }
       wg_commit();
       wg_wait_all();
@@ -502,8 +544,20 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
       for (int kk = 0; kk < 4; ++kk) {
         // V tile read MN-major: 16 token rows per step, column blocks
         // apart by one 64-row block
-        wgmma_rs<HD>(o, pa[kk],
-                     desc<SW>(v_addr + kk * 16 * SW, L::kColBlock, 8 * SW));
+        if constexpr (L::kTailCols == 0) {
+          wgmma_rs<HD>(o, pa[kk],
+                       desc<SW>(v_addr + kk * 16 * SW, L::kColBlock, 8 * SW));
+        } else {
+          // the main blocks into o's first kMainCols / 2 floats, the tail
+          // block (one 16-column atom) into the last 8
+          wgmma_rs<L::kMainCols>(
+              *reinterpret_cast<float(*)[L::kMainCols / 2]>(o), pa[kk],
+              desc<SW>(v_addr + kk * 16 * SW, L::kColBlock, 8 * SW));
+          wgmma_rs_n16(
+              *reinterpret_cast<float(*)[8]>(o + L::kMainCols / 2), pa[kk],
+              desc<TSW>(v_addr + L::kTailOff + kk * 16 * TSW,
+                        kRows * TSW, 8 * TSW));
+        }
       }
       wg_commit();
       wg_wait_all();
@@ -524,7 +578,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
     uint8_t* o_s = q_s + (qb * WG + wg) * L::kTile;
 #pragma unroll
-    for (int c = 0; c < HD / 2; c += 4) {
+    for (int c = 0; c < L::kMainCols / 2; c += 4) {
       const int col = 2 * c + t2;                  // 8j + 2t, j = c / 4
       const int cb = col / (SW / 2);
       const int chunk = (col % (SW / 2)) / 8;      // 16-byte chunk of a row
@@ -538,6 +592,18 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
           ((chunk ^ swizzle_row<SW>(r0 + 8)) * 16) + in_chunk) =
           __floats2bfloat162_rn(o[c + 2] * inv1, o[c + 3] * inv1);
     }
+#pragma unroll
+    for (int c = L::kMainCols / 2; c < HD / 2; c += 4) {
+      // the tail block: 32-byte rows of two 16-byte chunks
+      const int chunk = (c - L::kMainCols / 2) / 4;
+      uint8_t* tail_s = o_s + L::kTailOff + t2 * 2;
+      *reinterpret_cast<__nv_bfloat162*>(
+          tail_s + r0 * TSW + ((chunk ^ swizzle_row<TSW>(r0)) * 16)) =
+          __floats2bfloat162_rn(o[c] * inv0, o[c + 1] * inv0);
+      *reinterpret_cast<__nv_bfloat162*>(
+          tail_s + (r0 + 8) * TSW + ((chunk ^ swizzle_row<TSW>(r0 + 8)) * 16)) =
+          __floats2bfloat162_rn(o[c + 2] * inv1, o[c + 3] * inv1);
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     if ((tid & 127) == 0) {
@@ -545,6 +611,9 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
       for (int cb = 0; cb < CB; ++cb) {
         tma_store(&tm_o, o_s + cb * L::kColBlock, cb * (SW / 2),
                   it.hq0 + wg, q0, it.b);
+      }
+      if constexpr (L::kTailCols > 0) {
+        tma_store(&tail.o, o_s + L::kTailOff, 0, it.hq0 + wg, q0, it.b);
       }
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       // the buffer is free for the next q once the store has read it
@@ -561,17 +630,40 @@ template <int HD, int WG>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int nh, int n_kv, int seq, int window, float scale,
            const int64_t* st, cudaStream_t stream) {
-  constexpr int SW = Layout<HD>::kSwizzle;
+  using L = Layout<HD>;
+  constexpr int SW = L::kSwizzle;
+  constexpr int MC = L::kMainCols;
+  // the main blocks' maps, and the tail block's from its own first column
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  int err = make_map(&tm_q, q, HD, nh, seq, batch, st[0], st[1], st[2], SW);
+  TailMaps tail = {};
+  int err = make_map(&tm_q, q, MC, nh, seq, batch, st[0], st[1], st[2], SW);
   if (!err) {
-    err = make_map(&tm_k, k, HD, n_kv, seq, batch, st[3], st[4], st[5], SW);
+    err = make_map(&tm_k, k, MC, n_kv, seq, batch, st[3], st[4], st[5], SW);
   }
   if (!err) {
-    err = make_map(&tm_v, v, HD, n_kv, seq, batch, st[3], st[4], st[5], SW);
+    err = make_map(&tm_v, v, MC, n_kv, seq, batch, st[3], st[4], st[5], SW);
   }
   if (!err) {
-    err = make_map(&tm_o, out, HD, nh, seq, batch, st[6], st[7], st[8], SW);
+    err = make_map(&tm_o, out, MC, nh, seq, batch, st[6], st[7], st[8], SW);
+  }
+  if constexpr (L::kTailCols > 0) {
+    constexpr int TC = L::kTailCols, TSW = L::kTailSwizzle;
+    if (!err) {
+      err = make_map(&tail.q, q, TC, nh, seq, batch, st[0], st[1], st[2],
+                     TSW, MC);
+    }
+    if (!err) {
+      err = make_map(&tail.k, k, TC, n_kv, seq, batch, st[3], st[4], st[5],
+                     TSW, MC);
+    }
+    if (!err) {
+      err = make_map(&tail.v, v, TC, n_kv, seq, batch, st[3], st[4], st[5],
+                     TSW, MC);
+    }
+    if (!err) {
+      err = make_map(&tail.o, out, TC, nh, seq, batch, st[6], st[7], st[8],
+                     TSW, MC);
+    }
   }
   if (err) return err;
   constexpr size_t smem = smem_bytes<HD, WG>();
@@ -593,7 +685,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   const int grid = min(n_items, max(per_sm, 1) * sms);
   flash_tc_kernel<HD, WG><<<grid, WG * 128 + 32, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_o, n_qt, batch, n_kv, qpk, window,
-      scale * 1.4426950408889634f);
+      scale * 1.4426950408889634f, tail);
   return (int)cudaGetLastError();
 }
 
@@ -625,9 +717,9 @@ int launch_heads(int heads, const void* q, const void* k, const void* v,
 
 // strides: 9 int64 in elements, (batch, head, seq) for q, k/v, out.
 // tc_heads: 0 takes the cuda_core kernel; 1, 2 or 4 the tensor_core kernel
-// with that many q heads (warpgroups) per block, for bf16 at hd 32, 64 or
-// 128 and seq % 64 == 0 only.  Returns the cudaError_t of the launch (0 on
-// success).
+// with that many q heads (warpgroups) per block, for bf16 at hd 32, 64, 80
+// or 128 and seq % 64 == 0 only.  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int nh, int seq, int qpk, int hd,
@@ -647,6 +739,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
             strides, s);
       case 64:
         return repro_torch::tc::launch_heads<64>(
+            tc_heads, q, k, v, out, batch, nh, n_kv, seq, window, scale,
+            strides, s);
+      case 80:
+        return repro_torch::tc::launch_heads<80>(
             tc_heads, q, k, v, out, batch, nh, n_kv, seq, window, scale,
             strides, s);
       case 128:

@@ -78,19 +78,21 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
 
 // the 16-byte chunk that row r's chunks are XORed with: the 128-byte
 // swizzle repeats every 8 rows of 128 bytes, the 64-byte one every 8 rows
-// of 64 bytes (two rows a 128-byte line)
+// of 64 bytes (two rows a 128-byte line), the 32-byte one every 8 rows of
+// 32 bytes (four rows a line: address bit 4 XOR bit 7)
 template <int SW>
 __device__ __forceinline__ int swizzle_row(int r) {
-  return SW == 128 ? (r & 7) : ((r >> 1) & 3);
+  return SW == 128 ? (r & 7) : SW == 64 ? ((r >> 1) & 3) : ((r >> 2) & 1);
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
 // byte offsets (16-byte units) and the swizzle mode of the TMA copy that
-// wrote the tile (1 = 128-byte, 2 = 64-byte)
+// wrote the tile (1 = 128-byte, 2 = 64-byte, 3 = 32-byte)
 template <int SW>
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo) {
-  constexpr uint64_t mode = SW == 128 ? 1 : 2;
+  static_assert(SW == 128 || SW == 64 || SW == 32, "swizzle of 32-128 B");
+  constexpr uint64_t mode = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
@@ -145,6 +147,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
 // D (64 x N, f32) += A (64 x 16) * B (16 x N): A in registers (the
 // m16n8k16 A fragment of each warp's 16 rows), B described in shared
 // memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
@@ -242,13 +257,21 @@ inline EncodeTiled encode_tiled() {
 }
 
 // 4-D map of a bf16 tensor: dims innermost first, the three outer strides
-// in elements, one box of `box` elements per dimension; reads past the
-// dims fill zeros and stores past them are dropped
+// in elements, one box of `box` elements per dimension, `swizzle` bytes
+// (128, 64 or 32) of swizzle; reads past the dims fill zeros and stores
+// past them are dropped
 inline int make_map_4d(CUtensorMap* map, const void* ptr,
                        const int64_t (&dims)[4], const int64_t (&st)[3],
                        const int (&box)[4], int swizzle) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMapSwizzle mode;
+  switch (swizzle) {
+    case 128: mode = CU_TENSOR_MAP_SWIZZLE_128B; break;
+    case 64: mode = CU_TENSOR_MAP_SWIZZLE_64B; break;
+    case 32: mode = CU_TENSOR_MAP_SWIZZLE_32B; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   cuuint64_t d[4], s[3];
   cuuint32_t b[4];
   const cuuint32_t elem[4] = {1, 1, 1, 1};
@@ -259,22 +282,25 @@ inline int make_map_4d(CUtensorMap* map, const void* ptr,
   for (int i = 0; i < 3; ++i) s[i] = (cuuint64_t)st[i] * 2;
   CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), d, s,
-      b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, mode,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// 4-D map (hd, heads, S, B) of a (B, heads, S, hd) bf16 tensor given
-// element strides for (batch, head, sequence); one box is one column block
-// (swizzle / 2 elements) of a 64-row tile
-inline int make_map(CUtensorMap* map, const void* ptr, int hd, int heads,
+// 4-D map (cols, heads, S, B) of columns col0 .. col0 + cols - 1 of a
+// (B, heads, S, hd) bf16 tensor given element strides for (batch, head,
+// sequence); one box is one swizzle atom's width (swizzle / 2 columns: 16
+// in the 32-byte swizzle) of a 64-row tile.  A map of all hd columns
+// takes col0 0 and cols hd; a narrower block of the row, such as hd 80's
+// last 16 columns, starts its map at its own first column.
+inline int make_map(CUtensorMap* map, const void* ptr, int cols, int heads,
                     int seq, int batch, int64_t sb, int64_t sh, int64_t ss,
-                    int swizzle) {
-  const int64_t dims[4] = {hd, heads, seq, batch};
+                    int swizzle, int col0 = 0) {
+  const int64_t dims[4] = {cols, heads, seq, batch};
   const int64_t st[3] = {sh, ss, sb};
-  const int box[4] = {swizzle / 2, 1, 64, 1};
-  return make_map_4d(map, ptr, dims, st, box, swizzle);
+  const int b[4] = {swizzle / 2, 1, 64, 1};
+  return make_map_4d(map, static_cast<const __nv_bfloat16*>(ptr) + col0,
+                     dims, st, b, swizzle);
 }
 
 }  // namespace hopper

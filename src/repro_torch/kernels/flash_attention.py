@@ -14,9 +14,11 @@ takes strides for the batch, head and sequence axes and needs only hd
 contiguous.
 
 Which instantiation runs is a rule on the shape, ``flash_path``: bf16 at
-hd 32, 64 or 128 with S a multiple of 64 takes the tensor-core kernel
-(wgmma products, TMA copies); everything else, float32 included, the
-CUDA-core kernel.  A launch that fails raises; nothing falls back.
+hd 32, 64, 80 or 128 with S a multiple of 64 takes the tensor-core kernel
+(wgmma products, TMA copies; hd 80's tile is a 64-column block in the
+128-byte swizzle and a 16-column block in the 32-byte one); everything
+else, float32 included, the CUDA-core kernel.  A launch that fails raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -36,15 +38,15 @@ ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
 #: q rows of the tensor-core kernel's tile (and kv tokens of a K/V tile)
 TC_ROWS = 64
 #: head dims the tensor-core kernel is instantiated for
-TC_HEAD_DIMS = (32, 64, 128)
+TC_HEAD_DIMS = (32, 64, 80, 128)
 #: depth of the tensor-core kernel's K/V ring
 TC_STAGES = 4
 
 
 def flash_path(dtype, hd: int, s: int) -> str:
-    """``"tensor_core"`` for bf16 at hd 32, 64 or 128 with ``s`` a multiple
-    of 64, else ``"cuda_core"`` (float32 stays off the tensor cores: TF32
-    would break the 2e-5 parity of the float32 engines)."""
+    """``"tensor_core"`` for bf16 at hd 32, 64, 80 or 128 with ``s`` a
+    multiple of 64, else ``"cuda_core"`` (float32 stays off the tensor
+    cores: TF32 would break the 2e-5 parity of the float32 engines)."""
     if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS and s % TC_ROWS == 0:
         return "tensor_core"
     return "cuda_core"
@@ -52,9 +54,12 @@ def flash_path(dtype, hd: int, s: int) -> str:
 
 def tc_heads(qpk: int, hd: int) -> int:
     """q heads (one consumer warpgroup each) that a tensor-core block
-    serves from one K/V stream: 4 where qpk allows it, 2 at hd 128 (a
-    thread's output accumulator of hd / 2 floats would not fit the 128
-    registers that 512 threads leave), else 1."""
+    serves from one K/V stream: 4 where qpk allows it up to hd 64, 2 at
+    hd 80 and 128, else 1.  At 4 warpgroups ptxas gives a thread 96
+    registers; a thread's output accumulator of hd / 2 floats beside the
+    32-float score accumulator does not fit them above hd 64 (at hd 80 it
+    spills 80 bytes and serializes the wgmma; 2 warpgroups take 142
+    registers, no spill)."""
     for heads in (4, 2):
         if qpk % heads == 0 and (heads < 4 or hd <= 64):
             return heads
@@ -68,7 +73,9 @@ def smem_bytes(hd: int, *, path: str = "cuda_core", qpk: int = 1) -> int:
     a V tile, the tile's probabilities and three vectors of the tile, f32.
     tensor_core: 1 KB of alignment slack, two buffers of one bf16 q tile
     per head of the block, ``TC_STAGES`` K/V tile pairs and the mbarriers
-    (full and empty for each q buffer and each K/V stage).
+    (full and empty for each q buffer and each K/V stage).  A tile is 64
+    rows of hd bf16 columns with no padding: at hd 80 an 8 KB block of 64
+    columns and a 2 KB block of 16, 10,240 bytes.
     """
     if path == "tensor_core":
         tile = TC_ROWS * hd * 2

@@ -94,6 +94,10 @@ def test_paged_decode_length_edges():
         (2, 128, 4, 2, 64, 64, 0),     # GQA
         (1, 128, 4, 1, 32, 64, 0),     # MQA
         (2, 128, 4, 2, 32, 32, 48),    # SWA
+        # hd 80: h2o-danube's GQA 4:1 with a window that cuts a 64-token
+        # tile, S past the window; zamba2's MHA
+        (1, 320, 4, 1, 80, 64, 100),
+        (2, 128, 4, 4, 80, 64, 0),
     ],
 )
 def test_flash_prefill_plain_matches_pallas(b, s, nh, nkv, hd, blk, window):

@@ -6,7 +6,7 @@
   against ``paged_attention_ref``;
 * ``split_plan`` covers every page once with at most 8 blocks;
 * ``flash_path`` picks the tensor-core kernel exactly for bf16 at hd 32,
-  64 or 128 with S a multiple of 64;
+  64, 80 or 128 with S a multiple of 64;
 * both new designs' shared memory fits a Hopper block for every head dim
   that ``chip_smoke.py`` checks;
 * the decode step builds its page table once and hands it to every layer,
@@ -159,19 +159,22 @@ def test_split_plan_at_granite_decode():
 @pytest.mark.parametrize("s", [64, 100, 128, 448, 512])
 def test_flash_path_rule(dtype, hd, s):
     want = ("tensor_core" if dtype == torch.bfloat16
-            and hd in (32, 64, 128) and s % 64 == 0 else "cuda_core")
+            and hd in (32, 64, 80, 128) and s % 64 == 0 else "cuda_core")
     assert flash_path(dtype, hd, s) == want
 
 
 @pytest.mark.parametrize("qpk,hd,heads", [
     (4, 64, 4), (4, 32, 4), (4, 128, 2), (2, 64, 2), (1, 64, 1), (3, 64, 1),
     (8, 128, 2), (1, 128, 1),
+    # hd 80: 2 warpgroups at most (4 would spill), so h2o-danube's qpk 4
+    # runs two blocks a kv head
+    (1, 80, 1), (2, 80, 2), (4, 80, 2), (8, 80, 2),
 ])
 def test_tc_heads(qpk, hd, heads):
     assert tc_heads(qpk, hd) == heads
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
 @pytest.mark.parametrize("qpk", [1, 2, 4, 8])
 def test_flash_smem_fits_a_block(hd, qpk):
     for path in ("tensor_core", "cuda_core"):
@@ -181,6 +184,12 @@ def test_flash_smem_fits_a_block(hd, qpk):
     if (hd, qpk) == (64, 4):
         assert flash_smem(hd, path="tensor_core", qpk=qpk) == (
             1024 + 16 * 8192 + 96)
+    # hd 80: tiles of an 8 KB 64-column block and a 2 KB 16-column block,
+    # two buffers of 1 or 2 q tiles beside the four K/V stages
+    if hd == 80:
+        heads = {1: 1, 2: 2, 4: 2, 8: 2}[qpk]
+        assert flash_smem(hd, path="tensor_core", qpk=qpk) == (
+            1024 + 2 * (heads + 4) * 10_240 + 96)
 
 
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
