@@ -42,7 +42,8 @@ Phases, each of which fails the run (exit code 1) on error:
    hd 80, mixtral-8x7b's window, at B 8 and 512 tokens) and flash at
    h2o-danube's windowed prefill past the window (``H2O_PREFILL``), all
    within ``TOL``, and the kernel, plain, SDPA and bound at llama2-7b's
-   decode and prefill and at that windowed prefill; then both at the last
+   decode and prefill, at that windowed prefill and at h2o-danube's decode
+   over phase 13's 4 slots of 512 tokens; then both at the last
    three families' full-width shapes (``FAMILY_SHAPES``: llava-next-34b's
    qpk 7 at hd 128, B 2 x S 3,136, zamba2-2.7b's MHA at hd 80, B 4 x S
    1,024, whisper-tiny's 6/6 at hd 64), within ``TOL``, with kernel, plain,
@@ -181,14 +182,37 @@ Phases, each of which fails the run (exit code 1) on error:
    (``FROZEN_COUNTERS``) and event rows without token values must equal
    the frozen engine's; the wall seconds of both runs and their ratio are
    logged beside the card, with the share of equal sampled tokens (bf16,
-   not gated).
+   not gated);
+13. the four examples (``examples/*_torch.py``), held to the JAX examples'
+   record (``tests/torch_examples_jax_runs.json``, ``EXAMPLES_RECORD``):
+   (a) every run of ``example_commands`` in a subprocess as users start
+   it (no ``--device``: the card), all at once: fairness_demo's table,
+   quickstart's completions and engine counters and serve_agents'
+   closed-loop flag sets (every line but the wall's and the metrics of
+   ``metrics_subset``) must equal the record; the sets that fit the
+   predictor on the card are logged line by line against it (the port's
+   MLPs start from torch's draws), and so are the card's costs against
+   JAX's; train_small's 200 steps must end under ln 512 and its
+   checkpoint must restore the trained parameters; the sim set with the
+   record's costs must equal the record; (b) serve_agents' default and
+   ``chaos`` sets through the example's own functions on full-width
+   h2o-danube-1.8b (24 layers, d_model 2560, 32/8 heads, hd 80, window
+   4096 over a 512-token cache, so paged decode at qpk 4 and flash on the
+   tensor cores) at bf16, each agent's predicted cost from the record:
+   every line, the gated metrics and every event row must equal the
+   record, paged decode must launch n_layers x decode steps and flash
+   n_layers x batched prefill passes, each on the tensor-core path; (c)
+   the ``fleet`` set so, with ``--fleet-workers 2`` and without, two
+   rounds each in turns: all four identical, their walls and ratio
+   logged.
 
-Each full-width phase and each phase-7, phase-8, phase-9 and phase-12 run
-zeroes the launch counts just before it serves and reads them just after;
-each phase's wall time is logged when the next starts.  The last lines are
-the card's name and power limit, one ``{"kernels": ...}`` JSON line
-(launches summed over phases 5, 6, 8, 9, 11 (a) and 12; phases 10 and 11
-(b) launch none; max |d| the larger
+Each full-width phase and each phase-7, phase-8, phase-9, phase-12 and
+phase-13 run zeroes the launch counts just before it serves and reads them
+just after; each phase's wall time is logged when the next starts.  The
+last lines are the card's name and power limit, one ``{"kernels": ...}``
+JSON line (launches summed over phases 5, 6, 8, 9, 11 (a), 12 and 13,
+phase 13's also logged on their own; phases 10 and 11 (b) launch none;
+max |d| the larger
 of the granite and llama2-7b shapes' in bfloat16) and, last, ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -366,6 +390,44 @@ DRYRUN_TIMEOUT_S = 600
 #: must swap: 1024 does, 5 times, for ``serving_agents``)
 FROZEN_RUNS = {"granite-3-2b": (4096, 1024), "xlstm-350m": (4096,)}
 FROZEN_COUNTERS = ("tokens", "prefills", "swaps", "decode_steps")
+#: phase 13: the JAX examples' record, made on the CPU by
+#: scripts/record_jax_examples.py (tests/test_torch_examples_record.py
+#: regenerates it and requires it unchanged)
+EXAMPLES_RECORD = ROOT / "tests" / "torch_examples_jax_runs.json"
+#: serve_agents' flag sets of the record: name -> argv.  ``chaos`` takes
+#: seed 3: its crash (replica 1 at t=11.1 s) lands while that replica
+#: serves agent 2, long before the drain (the fleet declares no failure
+#: at the example's defaults, at any seed: scripts/record_jax_examples.py)
+EXAMPLE_SETS = {
+    "default": [],
+    "fused": ["--fused-prefill", "--closed-loop", "--prefix-cache",
+              "--stream"],
+    "chaos": ["--replicas", "2", "--chaos", "3"],
+    "fleet": ["--replicas", "2", "--fleet-workers", "2",
+              "--steal-threshold", "1.5"],
+    "tooluse": ["--closed-loop", "--closed-loop-classes",
+                "chat,react,tooluse", "--suspend-retention", "spill",
+                "--admission-watermark", "0.2", "0.5"],
+    "sim": ["--backend", "sim", "--stream"],
+}
+#: the flag sets whose record also holds every agent's events (phase 13
+#: serves them in-process at full width)
+EXAMPLE_EVENT_SETS = ("default", "chaos", "fleet")
+#: the ``backend metrics:`` keys held to the record (an engine's own, and
+#: each replica's ``child_`` ones): phase 7's counters and the engine's
+#: scheduling counters, which equal the JAX engine's too
+EXAMPLE_COUNTERS = API_COUNTERS + ("sorts", "key_evals", "host_syncs",
+                                   "windows", "admission_deferrals")
+#: the fleet's keys held to the record
+FLEET_KEYS = ("replicas", "live_replicas", "replica_failures",
+              "agents_requeued", "agents_stolen", "steals")
+#: ``service_for_backend``'s engine arguments, which phase 13 gives the
+#: full-width model
+EXAMPLE_SERVE = dict(pool_tokens=4096, max_batch=4, cache_len=512,
+                     token_scale=8, time_scale=1.0, seed=0)
+#: the model serve_agents serves by default, at full width in phase 13
+EXAMPLE_ARCH = "h2o-danube-1.8b"
+EXAMPLE_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -729,8 +791,10 @@ def time_flash(ops, ref, torch, gen, shape=None, n_sets: int = 8):
 def time_zoo(ops, ref, torch) -> dict:
     """Kernel, plain version, SDPA and bound at llama2-7b's serving shapes
     (paged decode over B 8 slots of 512 tokens, flash prefill at B 8, S
-    512) and flash at h2o-danube-1.8b's windowed prefill
-    (``H2O_PREFILL``; SDPA with the window as a boolean mask), bf16."""
+    512), flash at h2o-danube-1.8b's windowed prefill (``H2O_PREFILL``;
+    SDPA with the window as a boolean mask) and paged decode at phase 13's
+    h2o-danube-1.8b serving shape (B 4 slots of 512 tokens, qpk 4, hd
+    80), bf16."""
     gen = torch.Generator(device="cuda").manual_seed(202)
     nh, n_kv, hd, _ = ZOO_SHAPES["llama2-7b"]
     out = {"paged llama2-7b": time_paged(ops, ref, torch, gen,
@@ -742,6 +806,9 @@ def time_zoo(ops, ref, torch) -> dict:
     out["flash h2o-danube-1.8b"] = time_flash(
         ops, ref, torch, gen, shape=(h["b"], h["s"], nh, n_kv, hd,
                                      h["window"]), n_sets=2)
+    out["paged h2o-danube-1.8b"] = time_paged(
+        ops, ref, torch, gen, shape=(EXAMPLE_SERVE["max_batch"], nh, n_kv,
+                                     hd, 24))
     return out
 
 
@@ -1593,10 +1660,9 @@ def serve_api(api, model, params, run: dict, **service) -> tuple:
         "finish": {str(a): t for a, t in sorted(res.finish.items())},
         "jct": {str(a): t for a, t in sorted(res.jct.items())},
         "counters": [{k: e[k] for k in API_COUNTERS} for e in engines],
-        "events": {str(h.agent_id): [event_row(ev) for ev in h.events]
-                   for h in handles},
     }
-    return json.loads(json.dumps(record)), handles
+    return {**json.loads(json.dumps(record)),
+            "events": handle_events(handles)}, handles
 
 
 def sampled_tokens(handles) -> dict:
@@ -1611,8 +1677,14 @@ def record_diff(got: dict, want: dict) -> str:
     for key in ("finish", "jct", "counters"):
         if got[key] != want[key]:
             return f"{key}: {got[key]} != {want[key]}"
-    for aid in sorted(set(got["events"]) | set(want["events"]), key=int):
-        g, w = got["events"].get(aid, []), want["events"].get(aid, [])
+    return events_diff(got["events"], want["events"])
+
+
+def events_diff(got: dict, want: dict) -> str:
+    """Where two agents-to-event-rows maps first differ ("" where they
+    are equal)."""
+    for aid in sorted(set(got) | set(want), key=int):
+        g, w = got.get(aid, []), want.get(aid, [])
         for i, (a, b) in enumerate(zip(g, w)):
             if a != b:
                 return f"agent {aid} event {i}: {a} != {b}"
@@ -1832,12 +1904,18 @@ def profile_fused_step(torch, model, params, card: str) -> None:
             f"{busy['slice alone'] / busy['fused step']:.3f}")
 
 
+def src_env() -> dict:
+    """The environment of a subprocess that imports the port from this
+    checkout."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+
+
 def run_launchers(record: dict) -> None:
     """Phase 7b: ``python -m repro_torch.launch.serve --backend engine`` as
     users start it (no ``--device``: the card), for each arch; its
     ``jct:`` and ``completions:`` lines must equal the JAX launcher's."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    env = src_env()
     for arch in LAUNCHER_ARCHS:
         cmd = [sys.executable, "-m", "repro_torch.launch.serve",
                "--backend", "engine", "--arch", arch]
@@ -2798,6 +2876,409 @@ def frozen_engine(torch, pkg, ops, arch: str, card: str) -> dict:
     return total
 
 
+# ----------------------------------------------------------------- phase 13
+
+
+def prompt_digest(prompt: str) -> str:
+    """A short digest of a synthetic prompt: how the record names it."""
+    import hashlib
+
+    return hashlib.sha256(prompt.encode()).hexdigest()[:16]
+
+
+class RecordedCosts:
+    """A cost predictor that answers from a record: ``costs`` holds
+    ``[class, prompt digest, cost]`` per call the JAX example made."""
+
+    def __init__(self, costs):
+        self.costs = {(cls, digest): cost for cls, digest, cost in costs}
+
+    def predict(self, cls: str, prompt: str) -> float:
+        return self.costs[(cls, prompt_digest(prompt))]
+
+
+def metrics_subset(metrics: dict) -> dict:
+    """The ``backend metrics:`` values held to the record: each of
+    ``EXAMPLE_COUNTERS`` and ``FLEET_KEYS`` present, and per replica its
+    agents, makespan and ``child_`` counters."""
+    keys = EXAMPLE_COUNTERS + FLEET_KEYS
+    out = {k: metrics[k] for k in keys if k in metrics}
+    if "per_replica" in metrics:
+        out["per_replica"] = [
+            {k: r[k] for k in ("agents", "makespan") + tuple(
+                "child_" + c for c in EXAMPLE_COUNTERS) if k in r}
+            for r in metrics["per_replica"]]
+    return out
+
+
+def serve_agents_output(out: str) -> dict:
+    """What a serve_agents run printed, as the record holds it: every line
+    but the wall seconds' and the metrics' (``lines``), and the metrics
+    that are held to the record (``metrics``)."""
+    import ast
+    import re
+
+    lines, metrics = [], None
+    for line in out.splitlines():
+        if line.startswith("backend metrics: "):
+            # numpy scalars print as np.float64(x): keep x
+            text = re.sub(r"np\.\w+\(([^()]*)\)", r"\1",
+                          line[len("backend metrics: "):])
+            metrics = metrics_subset(ast.literal_eval(text))
+        elif not line.startswith("served "):
+            lines.append(line)
+    return {"lines": lines, "metrics": metrics}
+
+
+def handle_events(handles) -> dict:
+    """Each agent's events without token values, as JSON gives them
+    back."""
+    rows = {str(h.agent_id): [event_row(ev) for ev in h.events]
+            for h in handles}
+    return json.loads(json.dumps(rows, default=lambda o: o.item()))
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_commands(ckpt: str) -> dict:
+    """Phase 13 (a)'s runs: name -> argv of ``python examples/...``, with
+    no ``--device`` (the card), as users start them."""
+    cmds = {f"serve_agents {name}": ["examples/serve_agents_torch.py", *argv]
+            for name, argv in EXAMPLE_SETS.items()}
+    cmds["quickstart"] = ["examples/quickstart_torch.py"]
+    cmds["fairness_demo"] = ["examples/fairness_demo_torch.py"]
+    cmds["train_small"] = ["examples/train_small_torch.py", "--ckpt", ckpt]
+    return cmds
+
+
+def start_examples(ckpt: str, extra=()) -> dict:
+    """Starts every run of ``example_commands`` at once, each with its
+    output in a file of its own; ``extra`` is appended to each command but
+    fairness_demo's.  Returns name -> (process, stdout, stderr, start)."""
+    import tempfile
+
+    env = src_env()
+    started = {}
+    for name, argv in example_commands(ckpt).items():
+        cmd = [sys.executable, *argv]
+        if name != "fairness_demo":
+            cmd += list(extra)
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        started[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                          stderr=err),
+                         out, err, time.perf_counter())
+    return started
+
+
+def finish_examples(started: dict) -> dict:
+    """Waits for every run of ``start_examples``; returns name -> (stdout,
+    wall).  A run that fails or outlasts ``EXAMPLE_TIMEOUT_S`` fails the
+    phase, and no run outlives it."""
+    done = {}
+    try:
+        for name, (proc, out, err, t0) in started.items():
+            left = EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)
+            code = proc.wait(timeout=max(left, 1.0))
+            wall = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            if code:
+                raise AssertionError(f"{name} exited {code}:\n"
+                                     f"{err.read()[-3000:]}")
+            done[name] = (out.read(), wall)
+    finally:
+        for proc, out, err, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+    return done
+
+
+def check_examples(done: dict, record: dict) -> None:
+    """Phase 13 (a): each example's output against the JAX examples'
+    record.  serve_agents' closed-loop sets, fairness_demo's table and
+    quickstart's completions and counters must equal it; the sets that fit
+    the predictor on the card (every set without ``--closed-loop``) are
+    logged line by line, not gated: the port's MLPs start from torch's
+    draws, so its costs are not JAX's (the costs of the record are served
+    in (b) and (c))."""
+    for name, (out, wall) in done.items():
+        log(f"  {name}: exit 0 in {wall:.1f} s")
+    out = done["fairness_demo"][0].splitlines()
+    if out != record["fairness_demo"]["lines"]:
+        raise AssertionError(f"fairness_demo: {out} != the record's "
+                             f"{record['fairness_demo']['lines']}")
+    log("  fairness_demo: the table equals the JAX example's")
+    got, want = (done["quickstart"][0].splitlines(),
+                 record["quickstart"]["lines"])
+    for i in (0, 2, 3):     # completions, engine counters, the mouse first
+        if got[i] != want[i]:
+            raise AssertionError(f"quickstart line {i}: {got[i]!r} != the "
+                                 f"JAX example's {want[i]!r}")
+    log(f"  quickstart: completions and engine counters equal the JAX "
+        f"example's, the mouse finished first; {got[1]} (JAX: "
+        f"{want[1][len('mouse generated tokens: '):]}; logged: the weights "
+        "are torch's draws)")
+    for name, argv in EXAMPLE_SETS.items():
+        rec = record["serve_agents"][name]
+        got = serve_agents_output(done[f"serve_agents {name}"][0])
+        equal = [a == b for a, b in zip(got["lines"], rec["lines"])]
+        same = (len(got["lines"]) == len(rec["lines"]) and all(equal)
+                and got["metrics"] == rec["metrics"])
+        jct = next((x for x in got["lines"] if x.startswith("jct:")), None)
+        if rec["costs"] is None:
+            if not same:
+                diff = next((f"line {i}: {a!r} != {b!r}" for i, (a, b) in
+                             enumerate(zip(got["lines"], rec["lines"]))
+                             if a != b), f"metrics {got['metrics']} != "
+                            f"{rec['metrics']}")
+                raise AssertionError(f"serve_agents {name} differs from the "
+                                     f"JAX example's record: {diff}")
+            log(f"  serve_agents {name} ({' '.join(argv)}): every line and "
+                "the gated metrics equal the JAX example's")
+            continue
+        log(f"  serve_agents {name} ({' '.join(argv) or 'no flags'}), the "
+            f"card's own predictor (logged): {sum(equal)} of "
+            f"{len(rec['lines'])} lines equal, metrics equal "
+            f"{got['metrics'] == rec['metrics']}; {jct} (JAX: "
+            f"{next(x for x in rec['lines'] if x.startswith('jct:'))})")
+
+
+def check_train_small(torch, out: str, ckpt: str) -> None:
+    """Phase 13 (a): train_small's final loss under ln(vocab), and its
+    checkpoint read back into the reduced model on the CPU: the step it
+    names, and a loss on the data's first batch well under the initial
+    parameters' (the trained parameters, not the initial ones)."""
+    import math
+
+    from repro_torch.training import make_eval_step, restore_checkpoint
+
+    ex = load_example("train_small_torch")
+    args = ex.parse_args(["--device", "cpu"])
+    model, params, _, _, data = ex.build(args, "cpu")
+    final = float(out.split("final loss ")[1].split()[0])
+    per_step = out.rsplit("(", 1)[1].split("s/step")[0]
+    uniform = math.log(ex.VOCAB)
+    restored, step = restore_checkpoint(ckpt, {"params": params})
+    batch = {k: torch.as_tensor(v) for k, v in next(data).items()}
+    loss = make_eval_step(model)
+    trained, init = (float(loss(restored["params"], batch)),
+                     float(loss(params, batch)))
+    log(f"  train_small: {args.steps} steps, final loss {final:.3f} vs "
+        f"uniform {uniform:.3f}, {per_step} s/step on the card; checkpoint "
+        f"at step {step}: loss {trained:.3f} on the first batch (initial "
+        f"parameters {init:.3f})")
+    if not final < uniform:
+        raise AssertionError(f"train_small: final loss {final} not under "
+                             f"ln({ex.VOCAB})")
+    if "checkpoint round-trip OK" not in out or step != args.steps:
+        raise AssertionError(f"train_small: checkpoint at step {step}")
+    if not trained < init - 1.0:
+        raise AssertionError(f"train_small: the checkpoint's loss {trained} "
+                             f"is not the trained parameters' (initial "
+                             f"{init})")
+
+
+def serve_example(torch, api, ops, ex, model, params, argv: list,
+                  costs: list, device: str = "cuda") -> dict:
+    """serve_agents' flag set ``argv`` on a model already built: the
+    example's own ``build_specs`` (each agent's predicted cost from
+    ``costs``, the record's), ``fault_plan``, ``service_kwargs`` and
+    ``serve``, over ``AgentService.engine`` with ``EXAMPLE_SERVE``.
+    ``model`` is None for the sim (``build_service``).  Returns the
+    printed output as the record holds it, each agent's events, the wall
+    seconds, the decode steps, the kernels' launches and the (B, S) of
+    every batched prefill pass."""
+    import contextlib
+    import io
+
+    from repro_torch.engine import engine as engine_mod
+
+    args = ex.parse_args(argv + ["--device", device])
+    passes = []
+    write = engine_mod._prefill_write
+
+    def counted_write(*a, **kw):
+        passes.append(tuple(a[5].shape))       # the padded tokens
+        return write(*a, **kw)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        specs = ex.build_specs(args, device,
+                               fit=lambda samples, dev: RecordedCosts(costs))
+        if args.backend == "sim":
+            svc = ex.build_service(args, device)
+        else:
+            plan, watchdog = ex.fault_plan(args)
+            kw = {k: v for k, v in ex.service_kwargs(args, plan,
+                                                     watchdog).items()
+                  if v is not None and k != "stream"}
+            svc = api.AgentService.engine(model, params, args.scheduler,
+                                          **EXAMPLE_SERVE, **kw)
+        gc.collect()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        engine_mod._prefill_write = counted_write
+        try:
+            t0 = time.perf_counter()
+            result = ex.serve(args, svc, specs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            engine_mod._prefill_write = write
+            if hasattr(svc.backend, "close"):
+                svc.backend.close()
+    m = result.metrics
+    steps = m.get("decode_steps", 0) if "per_replica" not in m else sum(
+        r["child_decode_steps"] for r in m["per_replica"])
+    return {**serve_agents_output(buf.getvalue()),
+            "events": handle_events(svc.handles.values()), "wall": wall,
+            "steps": steps, "passes": passes,
+            "paged": ops.paged_gqa_decode.launches,
+            "flash": ops.flash_prefill.launches}
+
+
+def check_example_run(name: str, got: dict, rec: dict, n_layers: int,
+                      flash_path, dtype, hd: int, card: str) -> None:
+    """Holds one of phase 13's full-width runs to the record (every line
+    but the wall's, the gated metrics, every event row) and its launches
+    to the prediction: paged decode n_layers x decode steps, flash n_layers
+    x batched prefill passes, each pass on ``flash_path``'s tensor-core
+    kernel."""
+    paths = {}
+    for shape in got["passes"]:
+        path = flash_path(dtype, hd, shape[1])
+        paths[path] = paths.get(path, 0) + 1
+    want_paged, want_flash = (n_layers * got["steps"],
+                              n_layers * len(got["passes"]))
+    log(f"  {name:8s} wall {got['wall']:.3f} s, decode iterations/s "
+        f"{got['steps'] / got['wall']:.2f} ({card}); launches: paged "
+        f"{got['paged']} (= {n_layers} x {got['steps']} decode steps: "
+        f"{got['paged'] == want_paged}), flash {got['flash']} (= {n_layers}"
+        f" x {len(got['passes'])} prefill passes: "
+        f"{got['flash'] == want_flash}; passes per path {paths})")
+    for key in ("lines", "metrics", "events"):
+        if got[key] != rec[key]:
+            diff = (events_diff(got[key], rec[key]) if key == "events"
+                    else f"{got[key]} != {rec[key]}")
+            raise AssertionError(f"{name}: {key} differ from the JAX "
+                                 f"example's record: {diff}")
+    log(f"  {name:8s} every line, the gated metrics and "
+        f"{sum(len(e) for e in got['events'].values())} events equal the "
+        "JAX example's record")
+    if got["paged"] != want_paged or got["flash"] != want_flash:
+        raise AssertionError(f"{name}: launches paged {got['paged']}, flash "
+                             f"{got['flash']}; want {want_paged}, "
+                             f"{want_flash}")
+    if set(paths) != {"tensor_core"}:
+        raise AssertionError(f"{name}: prefill passes per flash path "
+                             f"{paths}")
+
+
+def examples_phase(torch, api, ops, pkg, card: str, extra=()) -> dict:
+    """Phase 13: the four examples.  (a) every run of ``example_commands``
+    in a subprocess as users start them (no ``--device``: the card),
+    checked by ``check_examples`` and ``check_train_small``, the card's own
+    predictor costs against the record's (logged), and the sim set with
+    the record's costs, which must equal the record; (b) serve_agents'
+    default set at full width (``EXAMPLE_ARCH`` at bf16, every layer) with
+    the record's costs, then the ``chaos`` set; (c) the ``fleet`` set with
+    ``--fleet-workers 2`` and without, two rounds each in turns: each run
+    held to the record by ``check_example_run``, and the runs with and
+    without workers identical; their walls and ratio logged.  ``extra``
+    is appended to (a)'s commands.  Returns the launches of (b) and
+    (c)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.kernels.flash_attention import flash_path
+
+    record = json.loads(EXAMPLES_RECORD.read_text())
+    ex = load_example("serve_agents_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "train_small.msgpack")
+        log("  (a) the examples as users start them, all at once")
+        done = finish_examples(start_examples(ckpt, extra))
+        check_examples(done, record)
+        check_train_small(torch, done["train_small"][0], ckpt)
+    rec = record["serve_agents"]
+    args = ex.parse_args(["--device", "cuda"])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        specs = ex.build_specs(args, "cuda")
+    fit_s = time.perf_counter() - t0
+    want = [c for _, _, c in rec["default"]["costs"]]
+    rel = [abs(s.predicted_cost - c) / abs(c) for s, c in zip(specs, want)]
+    log(f"  the card's predictor (fitted in {fit_s:.1f} s): each agent's "
+        f"cost against the JAX example's, relative difference "
+        f"{[f'{r:.2e}' for r in rel]} (max {max(rel):.2e}; logged)")
+    got = serve_example(torch, api, ops, ex, None, None, EXAMPLE_SETS["sim"],
+                        rec["sim"]["costs"])
+    if {k: got[k] for k in ("lines", "metrics")} != {
+            k: rec["sim"][k] for k in ("lines", "metrics")}:
+        raise AssertionError(f"serve_agents sim with the record's costs: "
+                             f"{got['lines']} != {rec['sim']['lines']}")
+    log("  serve_agents sim with the record's costs: every line and the "
+        "gated metrics equal the JAX example's")
+
+    cfg = pkg["get_config"](EXAMPLE_ARCH)
+    log(f"  (b) full-width {cfg.name} through serve_agents' functions and "
+        "AgentService.engine, with the record's costs")
+    model, params, _ = build_full_width(torch, pkg, cfg)
+    total = {"paged_attention": 0, "flash_attention": 0}
+    check = dict(n_layers=cfg.n_layers, flash_path=flash_path,
+                 dtype=getattr(torch, cfg.dtype), hd=cfg.head_dim, card=card)
+
+    def run(name, argv):
+        got = serve_example(torch, api, ops, ex, model, params, argv,
+                            rec[name]["costs"])
+        check_example_run(name, got, rec[name], **check)
+        total["paged_attention"] += got["paged"]
+        total["flash_attention"] += got["flash"]
+        return got
+
+    for name in ("default", "chaos"):
+        run(name, EXAMPLE_SETS[name])
+    log("  (c) the fleet set with --fleet-workers 2 and without, in turns")
+    argv = EXAMPLE_SETS["fleet"]
+    i = argv.index("--fleet-workers")
+    seq = argv[:i] + argv[i + 2:]
+    walls = {"workers": [], "sequential": []}
+    first = None
+    for _ in range(2):
+        for mode, a in (("workers", argv), ("sequential", seq)):
+            got = run("fleet", a)
+            walls[mode].append(got["wall"])
+            same = {k: got[k] for k in ("lines", "metrics", "events")}
+            if first is None:
+                first = same
+            elif same != first:
+                raise AssertionError(f"fleet ({mode}) differs from the "
+                                     "first fleet run")
+    w, s = (statistics.mean(walls["workers"]),
+            statistics.mean(walls["sequential"]))
+    log(f"  fleet walls ({card}): --fleet-workers 2 "
+        f"{[round(x, 3) for x in walls['workers']]} s, sequential "
+        f"{[round(x, 3) for x in walls['sequential']]} s; ratio of the "
+        f"means {w / s:.3f} (1.0: no overlap; 0.5: the two children "
+        f"overlap fully); the four runs identical")
+    del model, params
+    free_model(torch)
+    return total
+
+
 def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     """The before side of a comparison made in one chip call: times the
     kernels of another tree's port (an earlier commit unpacked beside this
@@ -3055,6 +3536,12 @@ def main(argv: list) -> int:
             "ServeEngine")
         for name, n in frozen_engine(torch, pkg, ops, arch, card).items():
             launches[name] += n
+
+    clock.start("13. the four examples on the card")
+    examples = examples_phase(torch, api, ops, pkg, card)
+    log(f"  launches of phases 1-12 {launches}; of phase 13 {examples}")
+    for name, n in examples.items():
+        launches[name] += n
     clock.start(None)
 
     sources = {

@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the port's entry points refuse to run
-quietly on the CPU when no device was named and CUDA is absent."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the port's
+examples (``examples/*_torch.py``) import neither JAX nor the JAX package,
+and the port's entry points refuse to run quietly on the CPU when no device
+was named and CUDA is absent."""
 
 import os
 import re
@@ -14,6 +15,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
 
 MODULES = [
@@ -79,6 +81,10 @@ def test_port_and_smoke_import_no_jax():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import importlib.util\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -95,10 +101,11 @@ def test_port_and_smoke_import_no_jax():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [SMOKE],
+    sorted(PORT.rglob("*.py")) + [SMOKE] + EXAMPLES,
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_repro_import_lines(path):
+    """Every import line of the port, the smoke run and the examples."""
     for n, line in enumerate(path.read_text().splitlines(), 1):
         assert not FORBIDDEN.match(line), f"{path}:{n}: {line.strip()}"
 
