@@ -1,0 +1,3 @@
+"""step_mfu.closed: useful FLOPs of the program's step spans over their wall at the bf16 peak (program_trace.step_mfu)."""
+
+from program_trace import step_mfu as read  # noqa: F401

@@ -53,6 +53,10 @@ programs become PyTorch functions that update the cache in place:
   its ``pos`` chasing the slice start, so its decode garbage lands on the
   rows the same step's slice overwrites (see ``_fused_window``).
 
+Each step records spans (``step``, ``prefill``, ``decode``,
+``decode.replay``) in the engine's ``trace`` (``repro_torch.trace``), on
+the host's clock and without a synchronise.
+
 ``prefix_cache=True`` needs no device program of its own: the unfused
 admission prefills the whole prompt as before and charges only the
 uncached suffix; fused admission writes a hit's head through
@@ -74,6 +78,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.cost import InferenceSpec, kv_token_time
 from repro_torch.core.queueing import OrderedQueue
 from repro_torch.core.schedulers import AgentScheduler, Request
@@ -511,6 +516,9 @@ class ServeEngine:
         # per-agent prefix-cache accounting (engine-scale tokens)
         self.agent_prefill_tokens: dict[int, int] = {}
         self.agent_hit_tokens: dict[int, int] = {}
+        #: spans of each step, on the host's clock
+        #: (``repro_torch.trace``); always on, never synchronises
+        self.trace = trace.Recorder()
 
     # -------------------------------------------------------------- warmup
 
@@ -732,18 +740,20 @@ class ServeEngine:
             raise RuntimeError("re-entrant step() from a listener callback")
         self._in_step = True
         try:
-            start = self.now
-            self._release_arrivals()
-            self._release_resumes()
-            self._admit()
-            if limit is not None:
-                # the admission pass may itself advance the clock (chunked
-                # prefill cost); shrink the decode budget so a fused window
-                # never runs past the caller's `until` horizon
-                limit = max(1, int(limit) - (self.now - start))
-            k = self._decode_once(limit)
-            self.now += 1
-            return k
+            with self.trace.span("step"):
+                start = self.now
+                self._release_arrivals()
+                self._release_resumes()
+                self._admit()
+                if limit is not None:
+                    # the admission pass may itself advance the clock
+                    # (chunked prefill cost); shrink the decode budget so
+                    # a fused window never runs past the caller's `until`
+                    # horizon
+                    limit = max(1, int(limit) - (self.now - start))
+                k = self._decode_once(limit)
+                self.now += 1
+                return k
         finally:
             self._in_step = False
 
@@ -1039,66 +1049,75 @@ class ServeEngine:
         batched_ok = self.model.cfg.kind in ("dense", "moe", "vlm")
         groups = [batch] if batched_ok else [[r] for r in batch]
         for group in groups:
-            k = len(group)
-            for req in group:
-                req.slot = self.slot_free.pop()
-                self.slot_req[req.slot] = req
-            plens = [len(req.prompt) for req in group]
-            if batched_ok:
-                # bucket prompt lengths to multiples of 64 and the batch to
-                # a power of two, as the JAX engine does to bound its
-                # compilations; padding rows cost only a little compute
-                bucket = max(-(-max(p, 1) // 64) * 64 for p in plens)
-                k_pad = 1 << (k - 1).bit_length() if k > 1 else 1
-            else:
-                bucket = max(max(p, 1) for p in plens)
-                k_pad = 1
-            toks = np.zeros((k_pad, bucket), np.int32)
-            lens = np.ones(k_pad, np.int32)              # dummy rows: 1 tok
-            slots = np.full(k_pad, self.max_batch, np.int32)   # OOB: dropped
-            for i, req in enumerate(group):
-                toks[i, : plens[i]] = req.prompt
-                lens[i] = plens[i]
-                slots[i] = req.slot
-            dev = self.device
-            nxt = _prefill_write(
-                self.model, self.cache_len, self.prefill_chunk,
-                self.params, self.cache,
-                torch.from_numpy(toks).to(dev),
-                torch.from_numpy(lens).to(dev), slots,
-            )
-            nxt_host = nxt.cpu().numpy()[:k]
-            self.metrics["host_syncs"] += 1
-            for req, p, tok in zip(group, plens, nxt_host):
-                self.slot_last_tok[req.slot] = tok
-                self.slot_pos[req.slot] = p
-                self.running.push(req)
-                self.metrics["prefills"] += 1
-                # a prefix-cache hit skips the cached chunk: only the
-                # uncached suffix is charged to the scheduler's service
-                # deal (cached_tokens is 0 with the cache off, so the
-                # expression — and the off path — is unchanged)
-                self.sched.on_service(
-                    req.agent_id,
-                    prefill_tokens=float(p - req.cached_tokens),
+            with self.trace.child("prefill") as span:
+                k = len(group)
+                for req in group:
+                    req.slot = self.slot_free.pop()
+                    self.slot_req[req.slot] = req
+                plens = [len(req.prompt) for req in group]
+                if batched_ok:
+                    # bucket prompt lengths to multiples of 64 and the
+                    # batch to a power of two, as the JAX engine does to
+                    # bound its compilations; padding rows cost only a
+                    # little compute
+                    bucket = max(-(-max(p, 1) // 64) * 64 for p in plens)
+                    k_pad = 1 << (k - 1).bit_length() if k > 1 else 1
+                else:
+                    bucket = max(max(p, 1) for p in plens)
+                    k_pad = 1
+                span.attrs.update(
+                    padded=k_pad, bucket=bucket,
+                    lens=tuple(p - req.cached_tokens
+                               for p, req in zip(plens, group)))
+                toks = np.zeros((k_pad, bucket), np.int32)
+                lens = np.ones(k_pad, np.int32)          # dummy rows: 1 tok
+                # out-of-range padding slots: dropped
+                slots = np.full(k_pad, self.max_batch, np.int32)
+                for i, req in enumerate(group):
+                    toks[i, : plens[i]] = req.prompt
+                    lens[i] = plens[i]
+                    slots[i] = req.slot
+                dev = self.device
+                nxt = _prefill_write(
+                    self.model, self.cache_len, self.prefill_chunk,
+                    self.params, self.cache,
+                    torch.from_numpy(toks).to(dev),
+                    torch.from_numpy(lens).to(dev), slots,
                 )
-                if self._grouped:
-                    self._dirty_agents.add(req.agent_id)
-                self._emit("on_admit", req.agent_id, req.rid, float(now0))
-                self.agent_prefill_tokens[req.agent_id] = (
-                    self.agent_prefill_tokens.get(req.agent_id, 0) + p
-                )
-                if req.cached_tokens:
-                    self.agent_hit_tokens[req.agent_id] = (
-                        self.agent_hit_tokens.get(req.agent_id, 0)
-                        + req.cached_tokens
+                nxt_host = nxt.cpu().numpy()[:k]
+                self.metrics["host_syncs"] += 1
+                for req, p, tok in zip(group, plens, nxt_host):
+                    self.slot_last_tok[req.slot] = tok
+                    self.slot_pos[req.slot] = p
+                    self.running.push(req)
+                    self.metrics["prefills"] += 1
+                    # a prefix-cache hit skips the cached chunk: only the
+                    # uncached suffix is charged to the scheduler's service
+                    # deal (cached_tokens is 0 with the cache off, so the
+                    # expression — and the off path — is unchanged)
+                    self.sched.on_service(
+                        req.agent_id,
+                        prefill_tokens=float(p - req.cached_tokens),
                     )
-                    self.metrics["prefill_tokens_saved"] += req.cached_tokens
-                    self.metrics["prefix_hits"] += 1
-                    self._emit(
-                        "on_prefix_hit", req.agent_id, req.rid,
-                        int(req.cached_tokens), int(p), float(now0),
+                    if self._grouped:
+                        self._dirty_agents.add(req.agent_id)
+                    self._emit("on_admit", req.agent_id, req.rid,
+                               float(now0))
+                    self.agent_prefill_tokens[req.agent_id] = (
+                        self.agent_prefill_tokens.get(req.agent_id, 0) + p
                     )
+                    if req.cached_tokens:
+                        self.agent_hit_tokens[req.agent_id] = (
+                            self.agent_hit_tokens.get(req.agent_id, 0)
+                            + req.cached_tokens
+                        )
+                        self.metrics["prefill_tokens_saved"] += (
+                            req.cached_tokens)
+                        self.metrics["prefix_hits"] += 1
+                        self._emit(
+                            "on_prefix_hit", req.agent_id, req.rid,
+                            int(req.cached_tokens), int(p), float(now0),
+                        )
         self._slots_stale = True
         # prefill costs ceil(p / prefill_chunk) iterations of engine time
         # per request — with the prefix cache on, only the uncached suffix
@@ -1402,99 +1421,113 @@ class ServeEngine:
     def _decode_once(self, limit: Optional[int] = None) -> int:
         if not self.slot_req and self._pf is None:
             return 1
-        # grow each running sequence by one token (may trigger swaps)
-        for slot in sorted(self.slot_req):
-            req = self.slot_req.get(slot)
-            if req is None:
-                continue
-            while not self.alloc.append_token(req.rid):
-                if not self._swap_out_worst():
+        with self.trace.child("decode", k=0, tokens=0, keys=0) as span:
+            # grow each running sequence by one token (may trigger swaps)
+            for slot in sorted(self.slot_req):
+                req = self.slot_req.get(slot)
+                if req is None:
+                    continue
+                while not self.alloc.append_token(req.rid):
+                    if not self._swap_out_worst():
+                        break
+                    if req.rid not in self._swapped_rids:
+                        continue
                     break
-                if req.rid not in self._swapped_rids:
-                    continue
-                break
-            # note: if req itself was swapped out it no longer decodes
-        active = sorted(self.slot_req)
-        if not active and self._pf is None:
-            return 1
-        k = self._window_size(limit)
-        snapshot = [(slot, self.slot_req[slot]) for slot in active]
-        if k > 1:
-            # commit the window's remaining token growth up front (the
-            # step-1 append already ran above; a request completing at
-            # window step r appends exactly r tokens, like the reference's
-            # per-step growth loop) — _window_size proved it all fits, so
-            # no swap decision is being skipped
-            for slot, req in snapshot:
-                extra = min(k, req.max_new_tokens - req.generated) - 1
-                if extra and not self.alloc.append_tokens(req.rid, extra):
-                    raise AssertionError("window over-committed the pool")
-        if self._slots_stale:
-            self._refresh_device_slots()
-        pf = self._pf
-        if pf is not None:
-            # slice the next k prompt chunks host-side; the fused program
-            # advances one per step alongside the decoders
-            chunk = self.prefill_chunk
-            sl = np.zeros((k, chunk), np.int32)
-            for j in range(k):
-                seg = pf.req.prompt[pf.written + j * chunk:
-                                    pf.written + (j + 1) * chunk]
-                sl[j, :len(seg)] = seg
-            self._d_state, toks_dev = _fused_window(
-                self.model, k, chunk, self.params, self.cache,
-                self._d_state, torch.from_numpy(sl).to(self.device),
-                pf.slot, pf.written, pf.total,
-            )
-            out = toks_dev.cpu().numpy()     # (k, B+1): THE per-window sync
-            toks, pf_toks = out[:, :-1], out[:, -1]
-            self.metrics["fused_slices"] += k
-        else:
-            self._d_state, toks_dev = _decode_window(
-                self.model, k, self.params, self.cache, self._d_state
-            )
-            toks = toks_dev.cpu().numpy()    # (k, B): THE per-window sync
-        self.metrics["host_syncs"] += 1
-        self.metrics["decode_steps"] += k
-        self.metrics["windows"] += 1
+                # note: if req itself was swapped out it no longer decodes
+            active = sorted(self.slot_req)
+            if not active and self._pf is None:
+                return 1
+            k = self._window_size(limit)
+            snapshot = [(slot, self.slot_req[slot]) for slot in active]
+            if k > 1:
+                # commit the window's remaining token growth up front (the
+                # step-1 append already ran above; a request completing at
+                # window step r appends exactly r tokens, like the
+                # reference's per-step growth loop) — _window_size proved
+                # it all fits, so no swap decision is being skipped
+                for slot, req in snapshot:
+                    extra = min(k, req.max_new_tokens - req.generated) - 1
+                    if extra and not self.alloc.append_tokens(req.rid,
+                                                              extra):
+                        raise AssertionError(
+                            "window over-committed the pool")
+            if self._slots_stale:
+                self._refresh_device_slots()
+            pf = self._pf
+            if pf is not None:
+                # slice the next k prompt chunks host-side; the fused
+                # program advances one per step alongside the decoders
+                chunk = self.prefill_chunk
+                sl = np.zeros((k, chunk), np.int32)
+                for j in range(k):
+                    seg = pf.req.prompt[pf.written + j * chunk:
+                                        pf.written + (j + 1) * chunk]
+                    sl[j, :len(seg)] = seg
+                self._d_state, toks_dev = _fused_window(
+                    self.model, k, chunk, self.params, self.cache,
+                    self._d_state, torch.from_numpy(sl).to(self.device),
+                    pf.slot, pf.written, pf.total,
+                )
+                # (k, B+1): THE per-window sync
+                out = toks_dev.cpu().numpy()
+                toks, pf_toks = out[:, :-1], out[:, -1]
+                self.metrics["fused_slices"] += k
+            else:
+                self._d_state, toks_dev = _decode_window(
+                    self.model, k, self.params, self.cache, self._d_state
+                )
+                toks = toks_dev.cpu().numpy()    # (k, B): THE per-window sync
+            self.metrics["host_syncs"] += 1
+            self.metrics["decode_steps"] += k
+            self.metrics["windows"] += 1
+            tokens0 = self.metrics["tokens"]
 
-        # replay the per-token bookkeeping host-side in exact step order;
-        # a request whose budget ran out at an earlier window step is
-        # frozen (mirrors the device-side rem mask)
-        rem0 = {slot: req.max_new_tokens - req.generated
-                for slot, req in snapshot}
-        for i in range(k):
-            if i:
-                self.now += 1
-            for slot, req in snapshot:
-                if i >= rem0[slot]:
-                    continue
-                req.generated += 1
-                self.metrics["tokens"] += 1
-                self._emit(
-                    "on_token", req.agent_id, req.rid, int(toks[i, slot]),
-                    float(self.now),
-                )
-                self.slot_last_tok[slot] = toks[i, slot]
-                self.slot_pos[slot] += 1
-                occ = len(req.prompt) + req.generated
-                self.sched.on_service(
-                    req.agent_id, kv_token_time=float(occ), decode_tokens=1.0
-                )
-                if self._grouped:
-                    self._dirty_agents.add(req.agent_id)
-                if req.generated >= req.max_new_tokens:
-                    self._complete(slot, req)
-        if pf is not None:
-            pf.written += k * self.prefill_chunk
-            if pf.written >= pf.total:
-                # slice exhaustion — the window's last step (the sizer
-                # capped K at exactly this): the final slice's argmax is
-                # the request's first token; it decodes from the next
-                # iteration on
-                self._pf = None
-                self._fused_to_decoder(pf.req, int(pf_toks[k - 1]))
-        return k
+            # replay the per-token bookkeeping host-side in exact step
+            # order; a request whose budget ran out at an earlier window
+            # step is frozen (mirrors the device-side rem mask).  ``keys``
+            # sums the keys each token attended: its context, clipped to
+            # the model's window
+            rem0 = {slot: req.max_new_tokens - req.generated
+                    for slot, req in snapshot}
+            window = self.model.cfg.sliding_window or self.cache_len
+            keys = 0
+            with self.trace.child("decode.replay"):
+                for i in range(k):
+                    if i:
+                        self.now += 1
+                    for slot, req in snapshot:
+                        if i >= rem0[slot]:
+                            continue
+                        req.generated += 1
+                        self.metrics["tokens"] += 1
+                        self._emit(
+                            "on_token", req.agent_id, req.rid,
+                            int(toks[i, slot]), float(self.now),
+                        )
+                        self.slot_last_tok[slot] = toks[i, slot]
+                        self.slot_pos[slot] += 1
+                        occ = len(req.prompt) + req.generated
+                        keys += occ if occ < window else window
+                        self.sched.on_service(
+                            req.agent_id, kv_token_time=float(occ),
+                            decode_tokens=1.0,
+                        )
+                        if self._grouped:
+                            self._dirty_agents.add(req.agent_id)
+                        if req.generated >= req.max_new_tokens:
+                            self._complete(slot, req)
+            span.attrs.update(k=k, tokens=self.metrics["tokens"] - tokens0,
+                              keys=keys)
+            if pf is not None:
+                pf.written += k * self.prefill_chunk
+                if pf.written >= pf.total:
+                    # slice exhaustion — the window's last step (the
+                    # sizer capped K at exactly this): the final slice's
+                    # argmax is the request's first token; it decodes from
+                    # the next iteration on
+                    self._pf = None
+                    self._fused_to_decoder(pf.req, int(pf_toks[k - 1]))
+            return k
 
     def _complete(self, slot: int, req: EngineRequest) -> None:
         req.done = True

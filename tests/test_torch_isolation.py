@@ -68,6 +68,7 @@ MODULES = [
     "repro_torch.training.data",
     "repro_torch.training.optimizer",
     "repro_torch.training.train",
+    "repro_torch.trace",
     "repro_torch.tree",
     "repro_torch.workloads",
     "repro_torch.workloads.agents",
