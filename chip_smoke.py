@@ -9,7 +9,7 @@ Phases, each of which fails the run (exit code 1) on error:
 1. device: the card's name and power limit (``nvidia-smi``); TF32 is
    switched off for float32 matrix products and convolutions, so float32
    comparisons are float32;
-2. build: compiles the three CUDA kernels from
+2. build: compiles the four CUDA sources of
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel) into
    ``build/torch_kernels`` and prints the build time, each kernel's
    register and shared-memory use and, where ``cuobjdump`` exists, the
@@ -47,9 +47,23 @@ Phases, each of which fails the run (exit code 1) on error:
    three families' full-width shapes (``FAMILY_SHAPES``: llava-next-34b's
    qpk 7 at hd 128, B 2 x S 3,136, zamba2-2.7b's MHA at hd 80, B 4 x S
    1,024, whisper-tiny's 6/6 at hd 64), within ``TOL``, with kernel, plain,
-   SDPA and bound at each; and each of the three wrappers refuses an input
-   that requires grad while grad mode is on (no kernel has a backward)
-   and launches under ``torch.no_grad()``;
+   SDPA and bound at each; then the decode block's glue
+   (``csrc/decode_glue.cu``) at granite-3-2b's and h2o-danube-1.8b's
+   decode shapes (``GLUE_ARCHS``) at B 64 and 256: each kernel against
+   the composition it replaces on the card (the cache and ``kv_pos``
+   writes, the residual sum and the rotation bitwise, the norms and
+   SiLU-and-multiply within ``GLUE_ULPS`` bf16 ulps; the norms also
+   logged at float32, where a variance one bit off shows), its device
+   time beside the plain chain's and its bound by bytes, and a
+   full-width decode step of each model at its benchmark cell's slots
+   (norm scales of 1 +- 0.1), composed and fused: the device operations a
+   step and a layer from a profiled step (fused at most
+   ``GLUE_MAX_OPS_PER_LAYER`` a layer), the host's enqueue and wall a
+   step, each wrapper's launches (n_layers x steps fused, 0 composed;
+   paged decode n_layers x steps on both), and the logits bitwise equal;
+   and each wrapper (the glue's four included) refuses an input that
+   requires grad while grad mode is on (no kernel has a backward) and
+   launches under ``torch.no_grad()``;
 4. reduced engines: reduced granite-3-2b and reduced xlstm-350m at float32
    served on the GPU (the kernels) and on the CPU (the plain versions)
    under three schedulers with a pool small enough to force swaps;
@@ -208,7 +222,11 @@ Phases, each of which fails the run (exit code 1) on error:
 
 Each full-width phase and each phase-7, phase-8, phase-9, phase-12 and
 phase-13 run zeroes the launch counts just before it serves and reads them
-just after; each phase's wall time is logged when the next starts.  The
+just after, and holds the decode glue's four wrappers to paged decode's
+count (``check_glue_counts``: once each a fused layer and step, which is
+every paged call of a RoPE model on plain tensors; no ``silu_mul`` in the
+MoE; none on a sharded plan's DTensors or without RoPE); each phase's
+wall time is logged when the next starts.  The
 last lines are the card's name and power limit, one ``{"kernels": ...}``
 JSON line (launches summed over phases 5, 6, 8, 9, 11 (a), 12 and 13,
 phase 13's also logged on their own; phases 10 and 11 (b) launch none;
@@ -253,6 +271,21 @@ LAUNCH_FLOOR_SOURCE = ROOT / "scripts" / "launch_floor.cu"
 #: the host takes to enqueue any function timed here
 SLEEP_CYCLES = 2_000_000
 GRANITE = dict(n_layers=40, nh=32, n_kv=8, hd=64)
+#: the decode glue's checks: arch -> (cache rows, the slots of its
+#: benchmark cell); each kernel is checked at B 64 and 256
+GLUE_ARCHS = {"granite-3-2b": (2048, 64), "h2o-danube-1.8b": (1024, 256)}
+GLUE_BATCHES = (64, 256)
+#: the decode glue's wrappers, each launched once a fused layer and step
+GLUE = ("fused_rms_norm", "fused_add_rms_norm", "rope_kv_write", "silu_mul")
+#: the most bf16 ulps a glue output may differ from its composition: the
+#: rotation and the writes round as it does, step for step; the norms add
+#: their squares in PyTorch's order, SiLU calls PyTorch's expf
+GLUE_ULPS = {"rms_norm": 1, "add_rms_norm": 1, "rope_q": 0, "silu_mul": 1}
+#: the most device operations a fused full-width decode layer may issue
+GLUE_MAX_OPS_PER_LAYER = 20
+#: decode steps of the full-width glue check
+GLUE_STEPS = 3
+GLUE_SOURCE = "src/repro_torch/kernels/csrc/decode_glue.cu"
 #: kernel functions that must hold tensor-core (HGMMA) instructions
 TENSOR_CORE_KERNELS = ("flash_tc_kernel", "mlstm_chunk_states_kernel",
                        "mlstm_chunk_outputs_kernel")
@@ -605,6 +638,15 @@ def check_grad_guard(ops, torch) -> None:
         "mlstm_chunk": lambda q: ops.mlstm_chunk(
             q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2),
             cuda(1, 4, 64), cuda(1, 4, 64)),
+        "fused_rms_norm": lambda q: ops.fused_rms_norm(
+            q[:, :1, 0], cuda(64), 1e-5),
+        "fused_add_rms_norm": lambda q: ops.fused_add_rms_norm(
+            q[:, :1, 0], q[:, :1, 0], cuda(64), 1e-5),
+        "rope_kv_write": lambda q: ops.rope_kv_write(
+            q[:, :1], q[:, :1, :2], q[:, :1, :2], cuda(1, 32), cuda(1, 32),
+            cuda(1, dtype=torch.int32), cuda(1, 8, 2, 64),
+            cuda(1, 8, 2, 64), cuda(1, 8, dtype=torch.int32)),
+        "silu_mul": lambda q: ops.silu_mul(q, q),
     }
     for name, call in calls.items():
         q = cuda(1, 64, 4, 64, grad=True)
@@ -828,6 +870,298 @@ def time_families(ops, ref, torch) -> dict:
                                           shape=(b, s, nh, n_kv, hd, 0),
                                           n_sets=min(n_sets, 8))
     return out
+
+
+def glue_counts(ops) -> dict:
+    """The decode glue wrappers' launch counts."""
+    return {name: getattr(ops, name).launches for name in GLUE}
+
+
+def want_glue(cfg, paged: int, plain: bool = True) -> dict:
+    """The glue wrappers' launches beside ``paged`` launches of paged
+    decode in the same run: every paged call of a RoPE model on plain
+    tensors is a fused decode layer and step, which launches each wrapper
+    once (the MoE keeps its own MLP: no ``silu_mul``); a sharded plan's
+    DTensors (``plain=False``) and a model without RoPE launch none."""
+    fused = plain and cfg.use_rope
+    return {name: paged if fused and not (name == "silu_mul" and cfg.is_moe)
+            else 0 for name in GLUE}
+
+
+def check_glue_counts(ops, cfg, paged: int, label: str,
+                      plain: bool = True) -> dict:
+    """Holds the glue wrappers' counts to ``want_glue``; returns them."""
+    got, want = glue_counts(ops), want_glue(cfg, paged, plain)
+    log(f"  {label}: decode glue launches {got} (one each a fused layer "
+        f"and decode step: {got == want})")
+    if got != want:
+        raise AssertionError(f"{label}: decode glue launched {got}, not "
+                             f"{want}")
+    return got
+
+
+def _ulps(torch, a, b) -> tuple:
+    """Largest gap in ulps between two tensors of one float dtype (their
+    bit patterns as ordered integers) and the share of equal elements."""
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    low = torch.iinfo(bits).min
+
+    def ordered(t):
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, low - i, i)
+
+    d = (ordered(a) - ordered(b)).abs()
+    return int(d.max()), float((d == 0).float().mean())
+
+
+def glue_inputs(torch, cfg, b: int, t: int, gen, dtype) -> dict:
+    """One decode token's inputs to the glue at ``cfg``'s widths: x and a
+    residual, a norm scale of 1 +- 0.1, q/k/v, positions over a T-row
+    cache with its first row, its last two and one past it (written at
+    row T-1), empty caches, and the MLP's two projections."""
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    nh, n_kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    pos = torch.randint(0, t + 4, (b,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos[:4] = torch.tensor([0, t - 2, t - 1, t + 3], dtype=torch.int32)
+    return dict(
+        x=randn(b, 1, d, scale=4.0), r=randn(b, 1, d, scale=2.0),
+        w=1 + 0.1 * torch.randn(d, generator=gen, device="cuda"),
+        q=randn(b, 1, nh, hd), k=randn(b, 1, n_kv, hd),
+        v=randn(b, 1, n_kv, hd), pos=pos,
+        k_cache=torch.zeros((b, t, n_kv, hd), dtype=dtype, device="cuda"),
+        v_cache=torch.zeros((b, t, n_kv, hd), dtype=dtype, device="cuda"),
+        kv_pos=torch.full((b, t), -1, dtype=torch.int32, device="cuda"),
+        a=randn(b, 1, cfg.d_ff, scale=3.0), g=randn(b, 1, cfg.d_ff))
+
+
+def check_glue(torch, ops, pkg) -> tuple:
+    """Phase 3's decode glue: at each ``GLUE_ARCHS`` decode shape and
+    ``GLUE_BATCHES``, each kernel against the composition it replaces,
+    run on the card in bf16 (gated by ``GLUE_ULPS``; writes and the
+    residual sum bitwise) and in float32 (logged), then each kernel's
+    device time beside its plain chain's and its bound by bytes.  Returns
+    the max |d| of each wrapper over the bf16 cases and the timings at
+    granite-3-2b's B 64 (the kernels line's)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import apply_rope, rms_norm, rope_tables
+
+    err, timing = dict.fromkeys(GLUE, 0.0), {}
+    for arch, (t, _) in GLUE_ARCHS.items():
+        cfg = pkg["get_config"](arch)
+        for b in GLUE_BATCHES:
+            for dtype in (torch.bfloat16, torch.float32):
+                gen = torch.Generator(device="cuda").manual_seed(b + t)
+                i = glue_inputs(torch, cfg, b, t, gen, dtype)
+                x, r, w, eps, pos = i["x"], i["r"], i["w"], cfg.norm_eps, \
+                    i["pos"]
+                tables = rope_tables(pos[:, None], cfg.head_dim,
+                                     cfg.rope_theta, "cuda")
+
+                def plain_rope(k_cache, v_cache, kv_pos, i=i, pos=pos):
+                    q = apply_rope(i["q"], pos[:, None], cfg.rope_theta)
+                    tr.update_cache(k_cache, apply_rope(
+                        i["k"], pos[:, None], cfg.rope_theta), pos)
+                    tr.update_cache(v_cache, i["v"], pos)
+                    tr.update_pos(kv_pos, pos, 1)
+                    return q[:, 0]
+
+                def fused_rope(k_cache, v_cache, kv_pos, i=i, pos=pos,
+                               tables=tables):
+                    return ops.rope_kv_write(i["q"], i["k"], i["v"], *tables,
+                                             pos, k_cache, v_cache, kv_pos)
+
+                caches = {path: [i[k].clone() for k in
+                                 ("k_cache", "v_cache", "kv_pos")]
+                          for path in ("plain", "fused")}
+                total, normed = ops.fused_add_rms_norm(x, r, w, eps)
+                pairs = {   # name: (wrapper, kernel's output, plain output)
+                    "rms_norm": ("fused_rms_norm", ops.fused_rms_norm(
+                        x, w, eps), rms_norm(x, w, eps)),
+                    "add_rms_norm": ("fused_add_rms_norm", normed,
+                                     rms_norm(x + r, w, eps)),
+                    "add_sum": ("fused_add_rms_norm", total, x + r),
+                    "rope_q": ("rope_kv_write", fused_rope(*caches["fused"]),
+                               plain_rope(*caches["plain"])),
+                    "k_cache": ("rope_kv_write", caches["fused"][0],
+                                caches["plain"][0]),
+                    "v_cache": ("rope_kv_write", caches["fused"][1],
+                                caches["plain"][1]),
+                    "silu_mul": ("silu_mul", ops.silu_mul(i["a"], i["g"]),
+                                 F.silu(i["a"]) * i["g"]),
+                }
+                res = {name: _ulps(torch, k, p)
+                       for name, (_, k, p) in pairs.items()}
+                kv_pos_equal = torch.equal(caches["fused"][2],
+                                           caches["plain"][2])
+                log(f"  decode glue, {arch} B {b} {str(dtype)[6:]}: (max "
+                    f"ulps, share equal) {res}; kv_pos equal {kv_pos_equal}")
+                if dtype != torch.bfloat16:
+                    continue
+                for name, (wrapper, k, p) in pairs.items():
+                    err[wrapper] = max(err[wrapper], float(
+                        (k.float() - p.float()).abs().max()))
+                bad = [name for name, (u, _) in res.items()
+                       if u > GLUE_ULPS.get(name, 0)]
+                if bad or not kv_pos_equal:
+                    raise AssertionError(
+                        f"decode glue at {arch} B {b}: {bad} beyond "
+                        f"{GLUE_ULPS}, kv_pos equal {kv_pos_equal}")
+                es = 2
+                nh, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+                xb = b * cfg.d_model * es
+                cases = {
+                    "fused_rms_norm": (
+                        lambda: ops.fused_rms_norm(x, w, eps),
+                        lambda: rms_norm(x, w, eps), 2 * xb + 4 * w.numel()),
+                    "fused_add_rms_norm": (
+                        lambda: ops.fused_add_rms_norm(x, r, w, eps),
+                        lambda: (lambda y: (y, rms_norm(y, w, eps)))(x + r),
+                        4 * xb + 4 * w.numel()),
+                    "rope_kv_write": (
+                        lambda: fused_rope(*caches["fused"]),
+                        lambda: plain_rope(*caches["plain"]),
+                        (2 * b * nh * hd + 4 * b * n_kv * hd) * es
+                        + 4 * b * hd + 8 * b),
+                    "silu_mul": (
+                        lambda: ops.silu_mul(i["a"], i["g"]),
+                        lambda: F.silu(i["a"]) * i["g"],
+                        3 * b * cfg.d_ff * es),
+                }
+                for name, (kernel, plain, n_bytes) in cases.items():
+                    ms = device_ms({"kernel": kernel, "plain": plain}, [()])
+                    bound, by = bound_ms(n_bytes, 0.0, "bfloat16")
+                    tm = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                              library_ms=None, bound_ms=bound, bound_by=by,
+                              shape=f"{arch} decode B={b} bf16")
+                    log_timing(name, tm)
+                    if arch == "granite-3-2b" and b == 64:
+                        timing[name] = tm
+                del i, caches, pairs
+        torch.cuda.empty_cache()
+    return err, timing
+
+
+def device_ops(torch, fn) -> list:
+    """Names of the device operations of one call of ``fn``, from a
+    ``torch.profiler`` trace of the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if str(e.device_type()).endswith("CUDA")]
+
+
+def glue_steps(torch, pkg, ops) -> None:
+    """Phase 3's full-width decode steps: each ``GLUE_ARCHS`` model at its
+    cell's slots and cache (random weights, the norm scales 1 +- 0.1 so
+    that the scale's rounding is exercised; every slot's cache random and
+    its ``kv_pos`` contiguous up to its position), composed
+    (``fused_decode_path`` forced off) and fused: ``GLUE_STEPS`` steps
+    with the launch counts zeroed before, one profiled step (device
+    operations a step and a layer; the fused at most
+    ``GLUE_MAX_OPS_PER_LAYER`` a layer), ten timed (host's enqueue and
+    synchronised wall, medians); the fused steps' logits must equal the
+    composed steps' bit for bit."""
+    from collections import Counter
+
+    from repro_torch.models import transformer as tr
+
+    fused_path = tr.fused_decode_path
+    for arch, (t, b) in GLUE_ARCHS.items():
+        cfg = pkg["get_config"](arch)
+        model = pkg["Model"](cfg, device="cuda")
+        params = model.init(seed=11)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        for key in ("ln1", "ln2"):
+            ln = params["blocks"][key]
+            ln.copy_(1 + 0.1 * torch.randn(ln.shape, generator=gen,
+                                           device="cuda"))
+        out, logits = {}, {}
+        for path in ("composed", "fused"):
+            tr.fused_decode_path = (fused_path if path == "fused"
+                                    else lambda *args: False)
+            try:
+                gen = torch.Generator(device="cuda").manual_seed(13)
+                cache = model.init_cache(params, b, t)
+                for key in ("k", "v"):
+                    cache[key].copy_(torch.randn(
+                        cache[key].shape, generator=gen, device="cuda") / 2)
+                pos = torch.randint(1, t - GLUE_STEPS - 1, (b,),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int32)
+                j = torch.arange(t, device="cuda", dtype=torch.int32)
+                cache["kv_pos"].copy_(torch.where(j[None] < pos[:, None],
+                                                  j[None], -1))
+                toks = torch.randint(0, cfg.vocab, (b, 1), generator=gen,
+                                     device="cuda", dtype=torch.int32)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                logits[path] = []
+                for step in range(GLUE_STEPS):
+                    lg, cache = model.decode(params, cache, toks, pos + step)
+                    logits[path].append(lg)
+                torch.cuda.synchronize()
+                counts = {"paged_gqa_decode": ops.paged_gqa_decode.launches,
+                          **glue_counts(ops)}
+                nxt = pos + GLUE_STEPS
+                names = device_ops(torch, lambda: model.decode(
+                    params, cache, toks, nxt))
+                enqueue, wall = [], []
+                for _ in range(10):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    model.decode(params, cache, toks, nxt)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    enqueue.append(1e3 * (t1 - t0))
+                    wall.append(1e3 * (time.perf_counter() - t0))
+            finally:
+                tr.fused_decode_path = fused_path
+            kinds = Counter(n.split("<")[0].split("(")[0][:48]
+                            for n in names)
+            out[path] = dict(counts=counts, ops=len(names),
+                             enqueue=statistics.median(enqueue),
+                             wall=statistics.median(wall))
+            log(f"  {arch} full-width decode step, B {b}, cache {t}, "
+                f"{path}: {len(names)} device operations "
+                f"({len(names) / cfg.n_layers:.1f} a layer), host enqueue "
+                f"{out[path]['enqueue']:.2f} ms, wall "
+                f"{out[path]['wall']:.2f} ms; launches over {GLUE_STEPS} "
+                f"steps {counts}; most frequent {kinds.most_common(8)}")
+            del cache
+            torch.cuda.empty_cache()
+        n = cfg.n_layers * GLUE_STEPS
+        want = {"composed": {"paged_gqa_decode": n, **dict.fromkeys(GLUE, 0)},
+                "fused": {"paged_gqa_decode": n, **dict.fromkeys(GLUE, n)}}
+        equal = all(torch.equal(f, c) for f, c in zip(logits["fused"],
+                                                       logits["composed"]))
+        gap = max(float((f.float() - c.float()).abs().max())
+                  for f, c in zip(logits["fused"], logits["composed"]))
+        log(f"  {arch}: {GLUE_STEPS} steps' logits fused against composed "
+            f"bitwise equal {equal} (max |d| {gap:.3g}); device operations "
+            f"{out['composed']['ops']} -> {out['fused']['ops']} a step")
+        for path, counts in want.items():
+            if out[path]["counts"] != counts:
+                raise AssertionError(f"{arch} {path}: launches "
+                                     f"{out[path]['counts']}, not {counts}")
+        if out["fused"]["ops"] > GLUE_MAX_OPS_PER_LAYER * cfg.n_layers:
+            raise AssertionError(f"{arch}: {out['fused']['ops']} device "
+                                 "operations a fused step")
+        if not equal:
+            raise AssertionError(f"{arch}: fused logits differ from the "
+                                 f"composed step's by up to {gap}")
+        del model, params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _mlstm_inputs(torch, gen, b, h, s, hd, dtype, state: bool):
@@ -1371,6 +1705,9 @@ def full_width(torch, pkg, ops, arch: str, profile: bool = True):
                                  f"not {n}")
     if not ssm and launches["flash_attention"] <= 0:
         raise AssertionError("flash prefill never launched")
+    if not ssm:
+        launches.update(check_glue_counts(
+            ops, cfg, launches["paged_attention"], cfg.name))
     # one more decode step on the final cache: finite logits of the
     # expected shape
     logits, _ = model.decode(params, eng.cache,
@@ -1379,17 +1716,16 @@ def full_width(torch, pkg, ops, arch: str, profile: bool = True):
     if logits.shape != (8, 1, cfg.vocab) or not bool(
             torch.isfinite(logits.float()).all()):
         raise AssertionError("full-width logits are not finite")
+    attention = ("paged_attention", "flash_attention", *GLUE)
     if not profile:
-        return ({k: launches[k] for k in ("paged_attention",
-                                          "flash_attention")}, model, params)
+        return {k: launches[k] for k in attention}, model, params
     profile_decode(torch, model, params, eng.cache,
                    eng._d_state[0][:, None].clone(), eng._d_state[1].clone())
     if ssm:
         profile_prefill(torch, model, params)
         return {"mlstm_chunk": launches["mlstm_chunk"]}, model, params
     profile_granite_prefill(torch, model, params, 8, largest_bucket(agents))
-    return ({k: launches[k] for k in ("paged_attention", "flash_attention")},
-            model, params)
+    return {k: launches[k] for k in attention}, model, params
 
 
 def _device_rows(prof, per: int):
@@ -1764,7 +2100,8 @@ def serve_full_width_api(torch, api, ops, model, params, record: dict,
 
     vocab = model.cfg.vocab
     n_layers = model.cfg.n_layers
-    total = {"paged_attention": 0, "flash_attention": 0}
+    total = {"paged_attention": 0, "flash_attention": 0,
+             **dict.fromkeys(GLUE, 0)}
     passes = []          # one entry per batched prefill pass, any thread
     write = engine_mod._prefill_write
 
@@ -1791,6 +2128,9 @@ def serve_full_width_api(torch, api, ops, model, params, record: dict,
             _check_api_run(name, run, got, handles, record, wall, paged,
                            flash, n_layers * len(passes), n_layers, vocab,
                            card)
+            for key, n in check_glue_counts(ops, model.cfg, paged,
+                                            name).items():
+                total[key] += n
     finally:
         engine_mod._prefill_write = write
     return total
@@ -2125,7 +2465,8 @@ def zoo_ring(torch, pkg, ops, record: dict, card: str) -> dict:
             raise AssertionError(f"ring run agent {a.agent_id}: "
                                  f"{len(toks)} tokens of {budget}, or out "
                                  "of range")
-    return {"paged_attention": paged, "flash_attention": flash}
+    return {"paged_attention": paged, "flash_attention": flash,
+            **check_glue_counts(ops, cfg, paged, "ring run")}
 
 
 # ------------------------------------------------------------------ phase 9
@@ -2172,6 +2513,7 @@ def run_family(torch, ops, model, params, batch, cache_len: int, steps: int,
     if launches != {"paged_attention": n * steps, "flash_attention": n}:
         raise AssertionError(f"{label}: launches {launches}, not flash {n} "
                              f"and paged {n * steps}")
+    launches.update(check_glue_counts(ops, cfg, n * steps, label))
     last = logits[-1]
     if last.shape != (b, 1, cfg.vocab) or not bool(
             torch.isfinite(last.float()).all()):
@@ -2570,7 +2912,7 @@ def train_full_width(torch, ops, card: str) -> None:
     wall = time.perf_counter() - t
     counts = {"paged_attention": ops.paged_gqa_decode.launches,
               "flash_attention": ops.flash_prefill.launches,
-              "mlstm_chunk": ops.mlstm_chunk.launches}
+              "mlstm_chunk": ops.mlstm_chunk.launches, **glue_counts(ops)}
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     steps = [h["elapsed_s"] for h in history]
     per_step = [b - a for a, b in zip(steps, steps[1:])]
@@ -2666,6 +3008,8 @@ def sharded_serving(torch, ops, pkg, mesh, card: str) -> dict:
     if launches != {"paged_attention": n * steps, "flash_attention": n}:
         raise AssertionError(f"sharded serving launched {launches}, not "
                              f"flash {n} and paged {n * steps}")
+    launches.update(check_glue_counts(ops, cfg, n * steps, "sharded serving",
+                                      plain=False))
     del model, params, cache, plan, dplan
     free_model(torch)
     return launches
@@ -2690,7 +3034,7 @@ def sharded_training(torch, ops, card: str) -> None:
     wall = time.perf_counter() - t
     counts = {"paged_attention": ops.paged_gqa_decode.launches,
               "flash_attention": ops.flash_prefill.launches,
-              "mlstm_chunk": ops.mlstm_chunk.launches}
+              "mlstm_chunk": ops.mlstm_chunk.launches, **glue_counts(ops)}
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     steps = [h["elapsed_s"] for h in got]
     per_step = [b - a for a, b in zip(steps, steps[1:])]
@@ -2802,7 +3146,8 @@ def serve_frozen_pair(torch, pkg, ops, model, params, pool: int) -> dict:
             wall=wall,
             launches={"paged_attention": ops.paged_gqa_decode.launches,
                       "flash_attention": ops.flash_prefill.launches,
-                      "mlstm_chunk": ops.mlstm_chunk.launches})
+                      "mlstm_chunk": ops.mlstm_chunk.launches,
+                      **glue_counts(ops)})
         del eng
     return out
 
@@ -2814,7 +3159,8 @@ def frozen_engine(torch, pkg, ops, arch: str, card: str) -> dict:
     run."""
     cfg = pkg["get_config"](arch)
     model, params, _ = build_full_width(torch, pkg, cfg)
-    total = {"paged_attention": 0, "flash_attention": 0, "mlstm_chunk": 0}
+    total = {"paged_attention": 0, "flash_attention": 0, "mlstm_chunk": 0,
+             **dict.fromkeys(GLUE, 0)}
     for i, pool in enumerate(FROZEN_RUNS[arch]):
         runs = serve_frozen_pair(torch, pkg, ops, model, params, pool)
         ref, new = runs["ReferenceServeEngine"], runs["ServeEngine"]
@@ -2822,11 +3168,12 @@ def frozen_engine(torch, pkg, ops, arch: str, card: str) -> dict:
         if cfg.kind == "ssm":
             want = {"paged_attention": 0, "flash_attention": 0,
                     "mlstm_chunk": (cfg.n_layers // cfg.slstm_every)
-                    * o["prefills"]}
+                    * o["prefills"], **dict.fromkeys(GLUE, 0)}
         else:
             want = {"paged_attention": cfg.n_layers * o["decode_steps"],
                     "flash_attention": cfg.n_layers * o["prefills"],
-                    "mlstm_chunk": 0}
+                    "mlstm_chunk": 0,
+                    **want_glue(cfg, cfg.n_layers * o["decode_steps"])}
         pairs = [(a, b) for aid in sorted(ref["tokens"])
                  for a, b in zip(ref["tokens"][aid],
                                  new["tokens"].get(aid, []))]
@@ -3237,7 +3584,8 @@ def examples_phase(torch, api, ops, pkg, card: str, extra=()) -> dict:
     log(f"  (b) full-width {cfg.name} through serve_agents' functions and "
         "AgentService.engine, with the record's costs")
     model, params, _ = build_full_width(torch, pkg, cfg)
-    total = {"paged_attention": 0, "flash_attention": 0}
+    total = {"paged_attention": 0, "flash_attention": 0,
+             **dict.fromkeys(GLUE, 0)}
     check = dict(n_layers=cfg.n_layers, flash_path=flash_path,
                  dtype=getattr(torch, cfg.dtype), hd=cfg.head_dim, card=card)
 
@@ -3247,6 +3595,9 @@ def examples_phase(torch, api, ops, pkg, card: str, extra=()) -> dict:
         check_example_run(name, got, rec[name], **check)
         total["paged_attention"] += got["paged"]
         total["flash_attention"] += got["flash"]
+        for key, n in check_glue_counts(ops, cfg, got["paged"],
+                                        name).items():
+            total[key] += n
         return got
 
     for name in ("default", "chaos"):
@@ -3444,6 +3795,10 @@ def main(argv: list) -> int:
         log_timing(name, t)
     for name, t in time_families(ops, ref, torch).items():
         log_timing(name, t)
+    glue_err, glue_timing = check_glue(torch, ops, pkg)
+    err.update(glue_err)
+    timing.update(glue_timing)
+    glue_steps(torch, pkg, ops)
 
     clock.start("4. reduced engines, GPU (kernels) against CPU (plain)")
     reduced_engine(torch, pkg, "granite-3-2b")
@@ -3551,6 +3906,13 @@ def main(argv: list) -> int:
                             "src/repro/kernels/flash_attention.py:125"),
         "mlstm_chunk": ("src/repro_torch/kernels/csrc/mlstm_chunk.cu",
                         "src/repro/kernels/mlstm_chunk.py:127"),
+        # the decode block's glue replaces no Pallas kernel: the JAX
+        # package's jnp, which XLA fuses
+        "fused_rms_norm": (GLUE_SOURCE, "src/repro/models/layers.py:22"),
+        "fused_add_rms_norm": (GLUE_SOURCE,
+                               "src/repro/models/layers.py:22"),
+        "rope_kv_write": (GLUE_SOURCE, "src/repro/models/layers.py:46"),
+        "silu_mul": (GLUE_SOURCE, "src/repro/models/layers.py:326"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

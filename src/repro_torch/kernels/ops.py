@@ -9,8 +9,10 @@ branch's plain versions stay differentiable.  Training runs the plain
 attention and mLSTM by choice, as the JAX package trains on no Pallas
 kernel.  Each wrapper counts its launches in an integer attribute
 (``paged_gqa_decode.launches``, ``flash_prefill.launches``,
-``mlstm_chunk.launches``), so a run can show that its main path went
-through the kernels.  The counts are raised under a lock: a replicated
+``mlstm_chunk.launches``, and the decode block's glue:
+``fused_rms_norm``, ``fused_add_rms_norm``, ``rope_kv_write`` and
+``silu_mul``), so a run can show that its main path went through the
+kernels.  The counts are raised under a lock: a replicated
 fleet advances its engines on several threads, and the ctypes calls
 release the interpreter lock, so two engines really launch at once.
 
@@ -24,7 +26,9 @@ first.
 The kernels are built at first use: every ``csrc/*.cu`` source is compiled
 by its own ``nvcc`` process (all started together) into a shared library
 with a plain C interface under ``build/torch_kernels/`` at the repository
-root, named by the hash of its sources, and loaded with ``ctypes``.  The
+root, named by the hash of its sources, and loaded with ``ctypes``: one C
+entry point a source (``SYMBOL``), or a dict of them where a source holds
+several kernels (``ENTRIES``, the decode glue).  The
 build and the load run once per process under a lock, whichever thread
 asks first; the others wait for it and share its entry points.
 """
@@ -44,6 +48,7 @@ import functools
 import torch
 from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch.kernels import decode_glue as _glue
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mlstm_chunk as _mlstm
 from repro_torch.kernels import paged_attention as _paged
@@ -51,11 +56,14 @@ from repro_torch.kernels.ref import (
     flash_attention_ref,
     mlstm_chunk_ref,
     paged_attention_ref,
+    rms_norm_ref,
+    rope_kv_write_ref,
+    silu_mul_ref,
 )
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 _KERNELS = {"paged_attention": _paged, "flash_attention": _flash,
-            "mlstm_chunk": _mlstm}
+            "mlstm_chunk": _mlstm, "decode_glue": _glue}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC"]
@@ -121,11 +129,19 @@ def _build_and_load() -> dict:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     fns = {}
     for name, lib in targets.items():
-        fn = getattr(ctypes.CDLL(str(lib)), _KERNELS[name].SYMBOL)
-        fn.argtypes = _KERNELS[name].ARGTYPES
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        cdll, mod = ctypes.CDLL(str(lib)), _KERNELS[name]
+        entries = getattr(mod, "ENTRIES", None)
+        fns[name] = (
+            _entry(cdll, mod.SYMBOL, mod.ARGTYPES) if entries is None
+            else {key: _entry(cdll, *e) for key, e in entries.items()})
     return fns
+
+
+def _entry(cdll, symbol: str, argtypes):
+    fn = getattr(cdll, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def refuse_grad(name: str, *tensors) -> None:
@@ -292,6 +308,75 @@ def _mlstm_chunk_flat(q, k, v, i_raw, log_f, c, n, m, *, chunk):
     return h, c, n, m
 
 
+def fused_rms_norm(x, w, eps: float):
+    """``layers.rms_norm(x, w, eps)`` in one kernel: the decode block's
+    ``ln1``.  x: (..., d) float32 or bf16; w: (d,) float32."""
+    if x.device.type == "cpu":
+        return rms_norm_ref(x, w, eps)
+    refuse_grad("fused_rms_norm", x, w)
+    out = _glue.rms_norm(kernel_library()["decode_glue"]["rms_norm"], x, w,
+                         eps)
+    _count(fused_rms_norm)
+    return out
+
+
+fused_rms_norm.launches = 0
+
+
+def fused_add_rms_norm(x, residual, w, eps: float):
+    """``(x + residual, layers.rms_norm(x + residual, w, eps))`` in one
+    kernel: the decode block's attention residual and its ``ln2``."""
+    if x.device.type == "cpu":
+        return rms_norm_ref(x, w, eps, residual)
+    refuse_grad("fused_add_rms_norm", x, residual, w)
+    out = _glue.rms_norm(kernel_library()["decode_glue"]["rms_norm"], x, w,
+                         eps, residual)
+    _count(fused_add_rms_norm)
+    return out
+
+
+fused_add_rms_norm.launches = 0
+
+
+def rope_kv_write(q, k, v, cos, sin, pos, k_cache, v_cache, kv_pos):
+    """One decode token's RoPE and cache writes in one kernel: q (B, 1,
+    nh, hd) and k (B, 1, n_kv, hd) rotated by the step's ``cos``/``sin``
+    (``layers.rope_tables`` at ``pos[:, None]``), k and v (B, 1, n_kv, hd)
+    written into row ``clamp(pos, 0, T-1)`` of ``k_cache``/``v_cache``
+    (B, T, n_kv, hd) in place, and ``pos`` into ``kv_pos`` (B, T) there.
+    Returns the rotated q as a fresh contiguous (B, nh, hd), the layout
+    ``paged_gqa_decode`` takes."""
+    if q.device.type == "cpu":
+        return rope_kv_write_ref(q, k, v, cos, sin, pos, k_cache, v_cache,
+                                 kv_pos)
+    refuse_grad("rope_kv_write", q, k, v, k_cache, v_cache)
+    out = _glue.rope_kv_write(
+        kernel_library()["decode_glue"]["rope_kv_write"], q, k, v, cos, sin,
+        pos.to(torch.int32), k_cache, v_cache, kv_pos)
+    _count(rope_kv_write)
+    return out
+
+
+rope_kv_write.launches = 0
+
+
+def silu_mul(a, b):
+    """``F.silu(a) * b`` in one kernel: the gated MLP's activation."""
+    if a.device.type == "cpu":
+        return silu_mul_ref(a, b)
+    refuse_grad("silu_mul", a, b)
+    out = _glue.silu_mul(kernel_library()["decode_glue"]["silu_mul"], a, b)
+    _count(silu_mul)
+    return out
+
+
+silu_mul.launches = 0
+
+#: every wrapper that counts its launches
+COUNTED = (paged_gqa_decode, flash_prefill, mlstm_chunk, fused_rms_norm,
+           fused_add_rms_norm, rope_kv_write, silu_mul)
+
+
 def _count(wrapper) -> None:
     with _COUNT_LOCK:
         wrapper.launches += 1
@@ -299,6 +384,5 @@ def _count(wrapper) -> None:
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
-        paged_gqa_decode.launches = 0
-        flash_prefill.launches = 0
-        mlstm_chunk.launches = 0
+        for wrapper in COUNTED:
+            wrapper.launches = 0

@@ -3,13 +3,19 @@
 The attention versions have the signatures and layouts of the JAX
 package's ``kernels/ref.py``; ``mlstm_chunk_ref`` computes what the Pallas
 ``mlstm_chunk_kernel`` computes, with recurrent state in and out and any
-sequence length.  The wrappers in ``ops.py`` run these for tensors on the
-CPU, and the on-card checks hold each CUDA kernel against them.
+sequence length.  The decode glue's pieces are defined here and the
+models call them: ``rms_norm_ref`` is ``layers.rms_norm``, ``rope_rotate``
+the rotation of ``layers.apply_rope``, ``write_rows`` and ``put_rows`` the
+writes of ``transformer.update_cache`` and ``update_pos`` on plain
+tensors; ``rope_kv_write_ref`` and ``silu_mul_ref`` compose them as the
+decode block does.  The wrappers in ``ops.py`` run these for tensors on
+the CPU, and the on-card checks hold each CUDA kernel against them.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.launch.op_analysis import expand, loop_weights, repeated
 
@@ -71,6 +77,62 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths,
         acc = a[..., None] * acc + c[..., None] * acc_r
         m = m_new
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def rms_norm_ref(x, w, eps: float, residual=None):
+    """RMSNorm over the last dim with the variance reduction in float32
+    and the scale applied in the compute dtype, as the JAX package does
+    (``layers.rms_norm``); with ``residual`` the pair ``(x + residual,
+    rms_norm(x + residual))``."""
+    if residual is not None:
+        x = x + residual
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    scale = (torch.rsqrt(var + eps) * w).to(x.dtype)
+    return x * scale if residual is None else (x, x * scale)
+
+
+def rope_rotate(x, cos, sin):
+    """x (..., hd) rotated by the angles whose ``cos`` and ``sin`` (...,
+    hd/2) are given, in float32, cast back to x's dtype: the halves (x1,
+    x2) become (x1 cos - x2 sin, x1 sin + x2 cos)."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def write_rows(pos, t: int, s: int):
+    """Row indices ``(B, S)`` of an S-row write at offsets ``pos`` into a
+    T-row cache, clamped like ``jax.lax.dynamic_update_slice`` (the start
+    moves so the whole slice fits)."""
+    start = torch.clamp(pos.long(), 0, t - s)
+    return start[:, None] + torch.arange(s, device=pos.device)
+
+
+def put_rows(cache, rows, new):
+    """``cache[b, rows[b, i]] = new[b, i]`` in place, cast to the cache's
+    dtype; returns ``cache``."""
+    bi = torch.arange(cache.shape[0], device=rows.device)[:, None]
+    cache[bi, rows] = new.to(cache.dtype)
+    return cache
+
+
+def rope_kv_write_ref(q, k, v, cos, sin, pos, k_cache, v_cache, kv_pos):
+    """One decode token's RoPE and cache writes, as the decode block makes
+    them: q and k rotated by the step's tables (``layers.rope_tables``),
+    then k and v written into row ``clamp(pos, 0, T-1)`` of the caches and
+    ``pos`` into ``kv_pos`` there, in place.  q, k, v (B, 1, n, hd); cos,
+    sin (B, 1, 1, hd/2).  Returns the rotated q as (B, nh, hd)."""
+    rows = write_rows(pos, k_cache.shape[1], 1)
+    put_rows(k_cache, rows, rope_rotate(k, cos, sin))
+    put_rows(v_cache, rows, v)
+    put_rows(kv_pos, rows, pos[:, None])
+    return rope_rotate(q, cos, sin)[:, 0]
+
+
+def silu_mul_ref(a, b):
+    """The gated MLP's ``F.silu(a) * b``."""
+    return F.silu(a) * b
 
 
 def flash_attention_ref(q, k, v, window: int = 0):

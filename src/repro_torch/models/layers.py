@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.ref import rms_norm_ref, rope_rotate
 from repro_torch.launch.op_analysis import expand, loop_weights, repeated
 from repro_torch.models.shardlib import active_rules, local_call, shard
 
@@ -31,11 +32,9 @@ from repro_torch.models.shardlib import active_rules, local_call, shard
 
 def rms_norm(x, w, eps: float = 1e-5):
     """RMSNorm with the variance reduction in f32; the scale is applied in
-    the compute dtype (as the JAX package does)."""
-    x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    scale = (torch.rsqrt(var + eps) * w).to(x.dtype)
-    return x * scale
+    the compute dtype (as the JAX package does): ``ref.rms_norm_ref``,
+    which the decode glue's kernel is held to."""
+    return rms_norm_ref(x, w, eps)
 
 
 # --------------------------------------------------------------------- rope
@@ -47,16 +46,19 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exponent)
 
 
+def rope_tables(positions, head_dim: int, theta: float, device=None):
+    """cos and sin of the rotary angles at ``positions`` (..., S), each
+    (..., S, 1, hd/2) float32: what ``apply_rope`` rotates by.  A decode
+    step builds them once for every layer (``rope_kv_write``)."""
+    inv = rope_freqs(head_dim, theta, device=device)        # (hd/2,)
+    ang = positions[..., None].float() * inv                # (..., S, hd/2)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., S, n, hd); positions: broadcastable to (..., S)."""
-    hd = x.shape[-1]
-    inv = rope_freqs(hd, theta, device=x.device)            # (hd/2,)
-    ang = positions[..., None].float() * inv                # (..., S, hd/2)
-    cos = torch.cos(ang)[..., None, :]
-    sin = torch.sin(ang)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return rope_rotate(x, *rope_tables(positions, x.shape[-1], theta,
+                                       device=x.device))
 
 
 # ---------------------------------------------------------------- attention

@@ -21,7 +21,9 @@ Attention runs through the CUDA kernels where the JAX engine ran plain jnp:
   its length ``pos + 1``.  That is exact while
   every slot's ``kv_pos`` row is ``j`` at each index ``j <= pos`` and -1 or
   beyond ``pos`` after it, which the engine keeps (``check_slot_contiguous``
-  asserts it when ``Model(debug_checks=True)``);
+  asserts it when ``Model(debug_checks=True)``).  On plain CUDA tensors the
+  block's glue runs in the fused kernels too (``fused_decode_path``): the
+  norms, RoPE with the cache writes, and SiLU-and-multiply;
 * chunked prefill (``dense_block_chunk``, queries at an offset) stays on the
   plain ``attention_any``: no Pallas kernel computes it.  So does
   ``prefill_slice`` (one slot's slice against the live cache, the engine's
@@ -91,7 +93,15 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import flash_prefill, paged_gqa_decode
+from repro_torch.kernels.ops import (
+    flash_prefill,
+    fused_add_rms_norm,
+    fused_rms_norm,
+    paged_gqa_decode,
+    rope_kv_write,
+    silu_mul,
+)
+from repro_torch.kernels.ref import put_rows, write_rows
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -108,6 +118,7 @@ from repro_torch.models.layers import (
     moe_mlp,
     project_heads,
     rms_norm,
+    rope_tables,
 )
 from repro_torch.models.shardlib import (
     contiguous_stride,
@@ -139,14 +150,6 @@ KINDS = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.kind not in KINDS:
         raise ValueError(f"unknown kind {cfg.kind}")
-
-
-def _write_rows(pos, t: int, s: int):
-    """Row indices ``(B, S)`` of an S-row write at offsets ``pos`` into a
-    T-row cache, clamped like ``jax.lax.dynamic_update_slice`` (the start
-    moves so the whole slice fits)."""
-    start = torch.clamp(pos.long(), 0, t - s)
-    return start[:, None] + torch.arange(s, device=pos.device)
 
 
 def _scatter_rows(cache, new, rows):
@@ -184,46 +187,38 @@ def _scatter_rows(cache, new, rows):
 def update_cache(cache_kv, new_kv, pos):
     """cache_kv: (B,T,n,h); new_kv: (B,S,n,h); pos: (B,) write offsets.
     Writes in place and returns ``cache_kv``."""
-    b, t = cache_kv.shape[:2]
-    rows = _write_rows(pos, t, new_kv.shape[1])
+    rows = write_rows(pos, cache_kv.shape[1], new_kv.shape[1])
     if isinstance(cache_kv, DTensor):
         return _scatter_rows(cache_kv, new_kv, rows)
-    cache_kv[torch.arange(b, device=pos.device)[:, None], rows] = new_kv.to(
-        cache_kv.dtype
-    )
-    return cache_kv
+    return put_rows(cache_kv, rows, new_kv)
 
 
 def update_pos(kv_pos, pos, s):
     """kv_pos: (B,T) slot-position tensor; write arange(pos, pos+s) in
     place."""
-    b, t = kv_pos.shape
     new = pos.to(kv_pos.dtype)[:, None] + torch.arange(
         s, dtype=kv_pos.dtype, device=pos.device
     )
+    rows = write_rows(pos, kv_pos.shape[1], s)
     if isinstance(kv_pos, DTensor):
-        return _scatter_rows(kv_pos, new, _write_rows(pos, t, s))
-    kv_pos[torch.arange(b, device=pos.device)[:, None],
-           _write_rows(pos, t, s)] = new
-    return kv_pos
+        return _scatter_rows(kv_pos, new, rows)
+    return put_rows(kv_pos, rows, new)
 
 
 def update_pos_masked(kv_pos, pos, s, lens):
     """``update_pos`` with per-row valid lengths: positions at or beyond a
     row's true length are written as -1 (invalid slot), so padded chunk
     tails never become attendable cache entries."""
-    b, t = kv_pos.shape
     new = pos.to(kv_pos.dtype)[:, None] + torch.arange(
         s, dtype=kv_pos.dtype, device=pos.device
     )
     new = torch.where(new < lens[:, None].to(kv_pos.dtype), new,
                       torch.full((), -1, dtype=kv_pos.dtype,
                                  device=pos.device))
+    rows = write_rows(pos, kv_pos.shape[1], s)
     if isinstance(kv_pos, DTensor):
-        return _scatter_rows(kv_pos, new, _write_rows(pos, t, s))
-    kv_pos[torch.arange(b, device=pos.device)[:, None],
-           _write_rows(pos, t, s)] = new
-    return kv_pos
+        return _scatter_rows(kv_pos, new, rows)
+    return put_rows(kv_pos, rows, new)
 
 
 def ring_update_cache(cache_kv, new_kv, pos):
@@ -452,13 +447,62 @@ def dense_block_chunk(p, x, pos, positions, lens, k_cache, v_cache, kv_pos,
     return x + block_ffn(p, h2, cfg)[0], k_cache, v_cache, kv_pos
 
 
+def fused_decode_path(x, k_cache, cfg: ModelConfig, ring: bool,
+                      kernels: bool) -> bool:
+    """Whether a decode block runs its glue through the fused kernels
+    (``_dense_block_decode_fused``): a full cache, ``kernels=True``,
+    rotary positions and plain (not DTensor) CUDA tensors.  A ring, a
+    sharded plan's DTensors, ``kernels=False`` and the CPU keep the
+    composed path."""
+    return (kernels and not ring and cfg.use_rope
+            and x.device.type == "cuda"
+            and not isinstance(x, DTensor)
+            and not isinstance(k_cache, DTensor))
+
+
+def _dense_block_decode_fused(p, x, pos, k_cache, v_cache, kv_pos,
+                              cfg: ModelConfig, pages, rope):
+    """``dense_block_decode`` on a full cache with its glue in four
+    kernel calls: ``fused_rms_norm`` (``ln1``), ``rope_kv_write`` (RoPE of
+    q and k, the K/V and ``kv_pos`` writes), ``fused_add_rms_norm`` (the
+    attention's residual and ``ln2``) and ``silu_mul`` (the gated MLP; the
+    MoE keeps ``moe_mlp``).  The same GEMMs and paged attention, each
+    kernel rounding as the composition it replaces (``kernels/ref.py``).
+    ``rope``: the step's ``rope_tables`` at ``pos[:, None]``."""
+    attn = p["attn"]
+    h = fused_rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = (project_heads(h, attn[w]) for w in ("wq", "wk", "wv"))
+    q = rope_kv_write(q, k, v, *rope, pos, k_cache, v_cache, kv_pos)
+    att = _decode_attention(q[:, None], k_cache, v_cache, pos, pages)
+    x, h2 = fused_add_rms_norm(x, attention_out(attn, att), p["ln2"],
+                               cfg.norm_eps)
+    if cfg.is_moe:
+        y = block_ffn(p, h2, cfg)[0]
+    else:
+        mlp = p["mlp"]
+        y = matmul(silu_mul(matmul(h2, mlp["w1"], "bsd,df->bsf"),
+                            matmul(h2, mlp["w3"], "bsd,df->bsf")),
+                   mlp["w2"], "bsf,fd->bsd")
+    return x + y, k_cache, v_cache, kv_pos
+
+
 def dense_block_decode(p, x, pos, k_cache, v_cache, kv_pos, cfg: ModelConfig,
-                       ring: bool, pages=None, kernels: bool = True):
+                       ring: bool, pages=None, kernels: bool = True,
+                       rope=None):
     """One-token decode step against a (possibly ring) KV cache, updated in
     place.  A full cache decodes through the paged kernel (``pages``: the
-    step's ``slot_pages``, built here when not given), a ring through the
-    plain masked attention, as does a full cache with ``kernels=False``
-    (the JAX package's decode attention)."""
+    step's ``slot_pages``, built here when not given), on plain CUDA
+    tensors with the fused glue (``fused_decode_path``; ``rope``: the
+    step's ``rope_tables``, built here when not given, as ``Model.decode``
+    builds them once for every layer), a ring through the plain masked
+    attention, as does a full cache with ``kernels=False`` (the JAX
+    package's decode attention)."""
+    if fused_decode_path(x, k_cache, cfg, ring, kernels):
+        if rope is None:
+            rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta,
+                               x.device)
+        return _dense_block_decode_fused(p, x, pos, k_cache, v_cache, kv_pos,
+                                         cfg, pages, rope)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = attention_qkv(
         p["attn"], h, pos[:, None], cfg.rope_theta, cfg.use_rope
@@ -1291,10 +1335,15 @@ class Model:
         ring = bool(cfg.sliding_window) and (
             cache["k"].shape[2] == cfg.sliding_window
         )
-        # one page table for every layer of a step on a full cache
+        # one page table, and on the fused path one set of rotary tables,
+        # for every layer of a step on a full cache
         b, t = cache["k"].shape[1:3]
         pages = (None if ring or not kernels
                  or isinstance(cache["k"], DTensor) else slot_pages(b, t, pos))
+        rope = (rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta,
+                            x.device)
+                if fused_decode_path(x, cache["k"], cfg, ring, kernels)
+                else None)
         kv = [(cache["k"][l], cache["v"][l], cache["kv_pos"][l])
               for l in range(cache["k"].shape[0])]
         if cfg.kind == "encdec":
@@ -1312,11 +1361,11 @@ class Model:
                     st.copy_(new_st)
                     conv.copy_(new_conv)
                 x = dense_block_decode(shared, x, pos, *kv[l], cfg, ring,
-                                       pages, kernels)[0]
+                                       pages, kernels, rope)[0]
         else:
             for lp, layer_kv in zip(self.layer_params(params), kv):
                 x = dense_block_decode(lp, x, pos, *layer_kv, cfg, ring,
-                                       pages, kernels)[0]
+                                       pages, kernels, rope)[0]
         if self.debug_checks and not ring:
             check_slot_contiguous(cache["kv_pos"], pos)
         return self._logits(params, x), cache

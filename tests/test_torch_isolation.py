@@ -34,6 +34,7 @@ MODULES = [
     "repro_torch.engine",
     "repro_torch.engine.reference",
     "repro_torch.kernels",
+    "repro_torch.kernels.decode_glue",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.mlstm_chunk",
     "repro_torch.kernels.ops",

@@ -16,7 +16,7 @@ import torch
 from repro.kernels import mlstm_chunk_kernel
 from repro.kernels import ops as jops
 from repro.models.layers import gqa_attention as jax_gqa_attention
-from repro_torch.kernels import ops
+from repro_torch.kernels import decode_glue, ops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk
 from repro_torch.kernels.paged_attention import paged_attention
@@ -127,19 +127,49 @@ def test_flash_prefill_rejects_misaligned_seq():
                            block_k=64, interpret=True)
 
 
+def _no_call(*_):
+    raise AssertionError("the kernel entry point must not be reached")
+
+
+def _glue_call(launcher, dtype=torch.float32, hd=64, other=None):
+    """One decode token's call of a decode-glue launcher on CPU tensors
+    (B 1, 4/2 heads); ``other`` is the dtype of its second float input."""
+    other = other or dtype
+    x, w = torch.zeros((1, 1, 32), dtype=dtype), torch.ones(32)
+    if launcher == "rms_norm":
+        return decode_glue.rms_norm(_no_call, x, w, 1e-5)
+    if launcher == "add_rms_norm":
+        return decode_glue.rms_norm(_no_call, x, w, 1e-5, x.to(other))
+    if launcher == "silu_mul":
+        return decode_glue.silu_mul(_no_call, x, x.to(other))
+    q = torch.zeros((1, 1, 4, hd), dtype=dtype)
+    k = torch.zeros((1, 1, 2, hd), dtype=dtype)
+    cache = torch.zeros((1, 8, 2, hd), dtype=other)
+    tab = torch.zeros((1, 1, 1, hd // 2))
+    pos = torch.zeros((1,), dtype=torch.int32)
+    return decode_glue.rope_kv_write(
+        _no_call, q, k, k, tab, tab, pos, cache, cache,
+        torch.zeros((1, 8), dtype=torch.int32))
+
+
+GLUE_LAUNCHERS = ["rms_norm", "add_rms_norm", "rope_kv_write", "silu_mul"]
+
+
 @pytest.mark.parametrize("launcher",
-                         ["paged", "flash", "mlstm", "mlstm_tensor_core"])
+                         ["paged", "flash", "mlstm", "mlstm_tensor_core"]
+                         + GLUE_LAUNCHERS)
 def test_cuda_launchers_refuse_cpu_tensors(launcher):
     """The CUDA path never quietly runs on CPU tensors: the launchers check
     the device before touching the C entry point (which is never called
     here).  ``mlstm_tensor_core`` gives the mLSTM launcher what its rule
-    sends to the two tensor-core passes (bf16, hd 64, 64-token chunks)."""
-    def no_call(*_):
-        raise AssertionError("the kernel entry point must not be reached")
-
+    sends to the two tensor-core passes (bf16, hd 64, 64-token chunks);
+    the decode glue's launchers get one decode token's tensors."""
+    no_call = _no_call
     q = torch.zeros((1, 2, 2, 32))
     with pytest.raises(ValueError, match="CUDA"):
-        if launcher == "paged":
+        if launcher in GLUE_LAUNCHERS:
+            _glue_call(launcher, torch.bfloat16)
+        elif launcher == "paged":
             pages = torch.zeros((4, 16, 2, 32))
             paged_attention(no_call, q, pages, pages,
                             torch.zeros((1, 4), dtype=torch.int32),
@@ -155,15 +185,36 @@ def test_cuda_launchers_refuse_cpu_tensors(launcher):
             mlstm_chunk(no_call, x, x, x, g, g, chunk=64)
 
 
-@pytest.mark.parametrize("hd,dtype,exc,match", [
-    (40, torch.float32, ValueError, "head_dim"),
-    (272, torch.float32, ValueError, "head_dim"),
-    (32, torch.float16, TypeError, "dtype"),
+@pytest.mark.parametrize("launcher,hd,dtype,other,exc,match", [
+    pytest.param("flash", 40, torch.float32, None, ValueError, "head_dim",
+                 id="40-dtype0-ValueError-head_dim"),
+    pytest.param("flash", 272, torch.float32, None, ValueError, "head_dim",
+                 id="272-dtype1-ValueError-head_dim"),
+    pytest.param("flash", 32, torch.float16, None, TypeError, "dtype",
+                 id="32-dtype2-TypeError-dtype"),
+    pytest.param("rope_kv_write", 40, torch.bfloat16, None, ValueError,
+                 "head_dim", id="rope_kv_write-head_dim"),
+    pytest.param("rope_kv_write", 64, torch.float16, None, TypeError,
+                 "dtype", id="rope_kv_write-dtype"),
+    pytest.param("rope_kv_write", 64, torch.bfloat16, torch.float32,
+                 TypeError, "mixed", id="rope_kv_write-mixed"),
+    pytest.param("rms_norm", 64, torch.float16, None, TypeError, "dtype",
+                 id="rms_norm-dtype"),
+    pytest.param("add_rms_norm", 64, torch.bfloat16, torch.float32,
+                 TypeError, "mixed", id="add_rms_norm-mixed"),
+    pytest.param("silu_mul", 64, torch.bfloat16, torch.float32, TypeError,
+                 "mixed", id="silu_mul-mixed"),
 ])
-def test_cuda_launcher_argument_checks(hd, dtype, exc, match):
-    q = torch.zeros((1, 2, 64, hd), dtype=dtype)
+def test_cuda_launcher_argument_checks(launcher, hd, dtype, other, exc,
+                                       match):
+    """Bad head dims and dtypes, and mixed dtypes, are refused before the
+    device is looked at (the tensors here are on the CPU)."""
     with pytest.raises(exc, match=match):
-        flash_attention(None, q, q, q)
+        if launcher == "flash":
+            q = torch.zeros((1, 2, 64, hd), dtype=dtype)
+            flash_attention(None, q, q, q)
+        else:
+            _glue_call(launcher, dtype, hd, other)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
