@@ -9,14 +9,14 @@ Phases, each of which fails the run (exit code 1) on error:
 1. device: the card's name and power limit (``nvidia-smi``); TF32 is
    switched off for float32 matrix products and convolutions, so float32
    comparisons are float32;
-2. build: compiles the four CUDA sources of
+2. build: compiles the five CUDA sources of
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel) into
    ``build/torch_kernels`` and prints the build time, each kernel's
    register and shared-memory use and, where ``cuobjdump`` exists, the
    tensor-core instructions (HGMMA, HMMA) in each kernel's SASS; a
-   tensor-core kernel (flash's, the mLSTM's two passes) without HGMMA
-   fails the run, and so does a missing or HGMMA-free hd-80 instantiation
-   of flash's (``FLASH_TC_HD80``);
+   tensor-core kernel (flash's, chunked prefill's, the mLSTM's two passes)
+   without HGMMA fails the run, and so does a missing or HGMMA-free hd-80
+   instantiation of flash's or chunked prefill's (``TC_HD80``);
 3. kernels: every kernel against its plain PyTorch version on the same
    inputs on the card (max |d| <= 2e-5 at float32, <= 3e-2 at bfloat16, the
    tolerances of tests/test_kernels.py; flash prefill logs the path,
@@ -47,7 +47,16 @@ Phases, each of which fails the run (exit code 1) on error:
    three families' full-width shapes (``FAMILY_SHAPES``: llava-next-34b's
    qpk 7 at hd 128, B 2 x S 3,136, zamba2-2.7b's MHA at hd 80, B 4 x S
    1,024, whisper-tiny's 6/6 at hd 64), within ``TOL``, with kernel, plain,
-   SDPA and bound at each; then the decode block's glue
+   SDPA and bound at each; then chunked prefill's attention kernel
+   (``ops.chunk_attention``) against ``attention_any`` on the same card
+   tensors (bf16 within ``TOL`` over the queries that attend a key, each
+   query that attends none 0, float32 logged): a padding row of length 1,
+   a cache of 198 rows whose ``kv_pos`` rows are off 16-byte boundaries, a
+   window that cuts tiles, hd 32 and 128, and ``CHUNK_SHAPES`` (the
+   benchmark cells' chunk passes: granite-3-2b B 16 x 512 at offsets 0,
+   512 and 1,536 of 2,048 rows, h2o-danube-1.8b B 32 x 512 at 0 and 512
+   of 1,024), with kernel, plain chain, SDPA with a boolean mask and the
+   bound by bytes and by operations at each; then the decode block's glue
    (``csrc/decode_glue.cu``) at granite-3-2b's and h2o-danube-1.8b's
    decode shapes (``GLUE_ARCHS``) at B 64 and 256: each kernel against
    the composition it replaces on the card (the cache and ``kv_pos``
@@ -63,7 +72,18 @@ Phases, each of which fails the run (exit code 1) on error:
    paged decode n_layers x steps on both), and the logits bitwise equal;
    and each wrapper (the glue's four included) refuses an input that
    requires grad while grad mode is on (no kernel has a backward) and
-   launches under ``torch.no_grad()``;
+   launches under ``torch.no_grad()``; last, ``CHUNK_PREFILL``:
+   full-width h2o-danube-1.8b through ``Model.prefill_chunked`` of B 32
+   ragged prompts of up to 1,024 tokens in chunks of 512 (the closed
+   cell's pass), ``chunk_attention`` launched n_layers x 2 times a pass,
+   ``kv_pos`` equal to the one-shot ``Model.prefill``'s, its logits and
+   valid K rows within bf16 ``TOL`` of that pass's and every row's argmax
+   the same, and the pass's device ms; then that model through
+   ``ServeEngine`` at the closed cell's cache of 1,024 and chunk of 512
+   (``CHUNK_SERVE``: prompts of 256-900 tokens), the counts zeroed just
+   before the run: ``chunk_attention`` n_layers x the chunks of its
+   chunked passes, flash n_layers x its one-shot passes, paged decode
+   n_layers x its steps;
 4. reduced engines: reduced granite-3-2b and reduced xlstm-350m at float32
    served on the GPU (the kernels) and on the CPU (the plain versions)
    under three schedulers with a pool small enough to force swaps;
@@ -220,8 +240,10 @@ Phases, each of which fails the run (exit code 1) on error:
    rounds each in turns: all four identical, their walls and ratio
    logged.
 
-Each full-width phase and each phase-7, phase-8, phase-9, phase-12 and
-phase-13 run zeroes the launch counts just before it serves and reads them
+Phase 3's serving run is the only one whose passes outgrow its chunk:
+every later run holds flash to n_layers x its passes, which a chunked
+pass would not meet.  Each full-width phase and each phase-7, phase-8, phase-9,
+phase-12 and phase-13 run zeroes the launch counts just before it serves and reads them
 just after, and holds the decode glue's four wrappers to paged decode's
 count (``check_glue_counts``: once each a fused layer and step, which is
 every paged call of a RoPE model on plain tensors; no ``silu_mul`` in the
@@ -229,7 +251,8 @@ MoE; none on a sharded plan's DTensors or without RoPE); each phase's
 wall time is logged when the next starts.  The
 last lines are the card's name and power limit, one ``{"kernels": ...}``
 JSON line (launches summed over phases 5, 6, 8, 9, 11 (a), 12 and 13,
-phase 13's also logged on their own; phases 10 and 11 (b) launch none;
+phase 13's also logged on their own, ``chunk_attention``'s those of
+phase 3's serving run; phases 10 and 11 (b) launch none;
 max |d| the larger
 of the granite and llama2-7b shapes' in bfloat16) and, last, ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the repository
@@ -239,7 +262,8 @@ beside it, the script exits non-zero and prints no result.
 commit unpacked beside this one), times its three kernels by the method
 of phase 3 (at granite-3-2b's shapes, the zoo's and the families', hd
 80 included), profiles its granite prefill pass and a decode step after it
-as phase 5 does and its xlstm-350m prefill as phase 6 does, so that one
+as phase 5 does, times its ``CHUNK_PREFILL`` pass and profiles its
+xlstm-350m prefill as phase 6 does, so that one
 chip call can hold a change against its parent; it prints no result
 line.
 """
@@ -287,11 +311,33 @@ GLUE_MAX_OPS_PER_LAYER = 20
 GLUE_STEPS = 3
 GLUE_SOURCE = "src/repro_torch/kernels/csrc/decode_glue.cu"
 #: kernel functions that must hold tensor-core (HGMMA) instructions
-TENSOR_CORE_KERNELS = ("flash_tc_kernel", "mlstm_chunk_states_kernel",
+TENSOR_CORE_KERNELS = ("flash_tc_kernel", "chunk_tc_kernel",
+                       "mlstm_chunk_states_kernel",
                        "mlstm_chunk_outputs_kernel")
 #: flash's hd-80 instantiations (q heads per block 1 and 2), which must be
 #: in the SASS with HGMMA
 FLASH_TC_HD80 = tuple(f"flash_tc_kernel<80, {wg}>" for wg in (1, 2))
+#: the same of chunked prefill's attention kernel, by library
+TC_HD80 = {"flash_attention": FLASH_TC_HD80,
+           "chunk_attention": tuple(f"chunk_tc_kernel<80, {wg}>"
+                                    for wg in (1, 2))}
+#: phase 3's chunked-prefill attention at the benchmark cells' chunk passes
+#: (heads as ``GRANITE`` and ``ZOO_SHAPES``): arch -> B, a chunk of S
+#: queries at each offset of a cache of T rows, and the window
+CHUNK_SHAPES = {
+    "granite-3-2b": dict(b=16, s=512, t=2048, offsets=(0, 512, 1536),
+                         window=0),
+    "h2o-danube-1.8b": dict(b=32, s=512, t=1024, offsets=(0, 512),
+                            window=4096),
+}
+#: phase 3's chunked prefill through ``Model``: the closed cell's model,
+#: cache and chunk, B 32 prompts of up to 1,024 tokens
+CHUNK_PREFILL = dict(arch="h2o-danube-1.8b", b=32, s=1024, cache_len=1024,
+                     chunk=512)
+#: phase 3's serving run on that model: seeded agents of 1-2 stages of 1-2
+#: inferences, prompts of 256-900 tokens (so passes both one-shot and
+#: chunked), 8-32 new tokens each
+CHUNK_SERVE = dict(seed=34, n=8, prompt=(256, 901), decode=(8, 33))
 #: xlstm-350m's prefill of one prompt at the longest cache
 XLSTM = dict(b=1, nh=4, s=512, hd=256)
 #: phase 3's shapes of the decoder-only zoo's full-width archs: name ->
@@ -870,6 +916,323 @@ def time_families(ops, ref, torch) -> dict:
                                           shape=(b, s, nh, n_kv, hd, 0),
                                           n_sets=min(n_sets, 8))
     return out
+
+
+def chunk_inputs(torch, gen, b, s, t, offset, nh, n_kv, hd, lens, dtype):
+    """One chunk step's attention inputs as ``Model.prefill_chunked``
+    leaves them for the chunk at ``offset``: q (B, S, nh, hd) at positions
+    offset + arange(S) in every row, K/V (B, T, n_kv, hd) drawn on every
+    row (so that masking shows), and ``kv_pos`` holding j at each row j
+    below offset + S and ``lens[b]``, -1 elsewhere.  ``kv_pos`` is the
+    second layer of an (L, B, T) stack, as the model's cache hands it on
+    (its rows need not start on 16-byte boundaries)."""
+    q = torch.randn(b, s, nh, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, t, n_kv, hd, generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    j = torch.arange(t, dtype=torch.int32, device="cuda")[None]
+    lens = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    kv_pos = torch.full((2, b, t), -1, dtype=torch.int32, device="cuda")[1]
+    kv_pos.copy_(torch.where((j < offset + s) & (j < lens[:, None]), j, -1))
+    positions = torch.arange(offset, offset + s, device="cuda")[None].expand(
+        b, s)
+    return q, k, v, positions, kv_pos
+
+
+def chunk_mask(torch, positions, kv_pos, window: int):
+    """The (B, S, T) mask of the keys each query attends: valid, not after
+    it, inside its window."""
+    kp, qp = kv_pos[:, None, :], positions[:, :, None]
+    mask = (kp >= 0) & (kp <= qp)
+    if window:
+        mask &= kp > qp - window
+    return mask
+
+
+def check_chunk_attention(ops, torch, attention_any) -> dict:
+    """Chunked prefill's attention kernel against ``attention_any`` on the
+    same card tensors; returns the max |d| in bfloat16 at each of
+    ``CHUNK_SHAPES``.  Gated at bfloat16's ``TOL`` over the queries that
+    attend a key; a query that attends none (a padding row of length 1
+    past a window) is not part of the contract and must be 0.  The kernel's
+    bf16 output is also logged against ``attention_any`` at float32 (the
+    same inputs, upcast).  Edge cases first: a padding row of length 1, a
+    cache length that 64 does not divide with ``kv_pos`` rows off 16-byte
+    boundaries, a window that cuts tiles, hd 32 at qpk 1 and hd 128."""
+    gen = torch.Generator(device="cuda").manual_seed(207)
+    cases = [  # name, b, s, t, offset, nh, n_kv, hd, window, lens
+        ("", 2, 64, 128, 0, 4, 2, 64, 0, [64, 1]),
+        ("", 3, 128, 198, 64, 8, 2, 80, 0, [190, 70, 1]),
+        ("", 2, 128, 512, 128, 8, 2, 80, 100, [256, 1]),
+        ("", 1, 64, 192, 64, 2, 2, 32, 0, [128]),
+        ("", 2, 128, 256, 0, 8, 2, 128, 0, [100, 128]),
+    ]
+    for arch, c in CHUNK_SHAPES.items():
+        nh, n_kv, hd = ((GRANITE["nh"], GRANITE["n_kv"], GRANITE["hd"])
+                        if arch == "granite-3-2b" else ZOO_SHAPES[arch][:3])
+        for off in c["offsets"]:
+            # a full row, a padding row of length 1, the rest drawn
+            lens = torch.randint(1, off + c["s"] + 1, (c["b"],),
+                                 generator=gen, device="cuda").tolist()
+            lens[:2] = [off + c["s"], 1]
+            cases.append((arch, c["b"], c["s"], c["t"], off, nh, n_kv, hd,
+                          c["window"], lens))
+    errs = {}
+    for label, b, s, t, off, nh, n_kv, hd, window, lens in cases:
+        q, k, v, positions, kv_pos = chunk_inputs(
+            torch, gen, b, s, t, off, nh, n_kv, hd, lens, torch.bfloat16)
+        got = ops.chunk_attention(q, k, v, positions, kv_pos, window=window)
+        attends = chunk_mask(torch, positions, kv_pos, window).any(-1)
+        outs = {}
+        for name, dt in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+            want = attention_any(q.to(dt), k.to(dt), v.to(dt), window=window,
+                                 q_positions=positions, kv_positions=kv_pos,
+                                 kv_valid=kv_pos >= 0)
+            outs[name] = (got.float() - want.float()).abs()[attends].max()
+        torch.cuda.synchronize()
+        err, err32 = (outs[n].item() for n in ("bfloat16", "float32"))
+        empty = int((~attends).sum())
+        zero = empty == 0 or got[~attends].abs().max().item() == 0
+        log(f"  chunk bfloat16 {label + ': ' if label else ''}b={b} S={s} "
+            f"offset={off} T={t} nh={nh} n_kv={n_kv} hd={hd} "
+            f"window={window} max|d|={err:.3g} (against float32 "
+            f"{err32:.3g}); {empty} queries with no key, 0: {zero}")
+        if not err <= TOL["bfloat16"] or not zero:
+            raise AssertionError(f"chunk attention differs by {err} (queries"
+                                 f" with no key all 0: {zero})")
+        if label:
+            errs[label] = max(errs.get(label, 0.0), err)
+    return errs
+
+
+def time_chunk(ops, torch, attention_any, arch: str, offset: int) -> dict:
+    """Kernel, plain ``attention_any`` (the chain it replaces), one SDPA
+    call with the mask as a boolean tensor (a yardstick the port never
+    calls) and the bound at a ``CHUNK_SHAPES`` chunk at ``offset``, every
+    row full (lens = offset + S); input sets rotate to keep L2 cold.  The
+    bound counts q and out, the K/V and ``kv_pos`` rows up to the chunk's
+    end once each, and the products over the attended pairs."""
+    c = CHUNK_SHAPES[arch]
+    b, s, t, window = c["b"], c["s"], c["t"], c["window"]
+    nh, n_kv, hd = ((GRANITE["nh"], GRANITE["n_kv"], GRANITE["hd"])
+                    if arch == "granite-3-2b" else ZOO_SHAPES[arch][:3])
+    gen = torch.Generator(device="cuda").manual_seed(208)
+    rows = min(t, offset + s)
+    kv_mb = 2 * b * t * n_kv * hd * 2 / 1e6
+    sets = [chunk_inputs(torch, gen, b, s, t, offset, nh, n_kv, hd,
+                         [rows] * b, torch.bfloat16)
+            for _ in range(max(2, min(8, int(200 / kv_mb) + 1)))]
+
+    def kernel(q, k, v, positions, kv_pos):
+        return ops.chunk_attention(q, k, v, positions, kv_pos, window=window)
+
+    def plain(q, k, v, positions, kv_pos):
+        return attention_any(q, k, v, window=window, q_positions=positions,
+                             kv_positions=kv_pos, kv_valid=kv_pos >= 0)
+
+    mask = chunk_mask(torch, sets[0][3], sets[0][4], window)[:, None]
+
+    def library(q, k, v, positions, kv_pos):
+        return _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                     attn_mask=mask)
+
+    tm = device_ms({"kernel": kernel, "plain": plain, "library": library},
+                   sets, iters=20)
+    n_bytes = (2 * b * s * nh * hd * 2 + 2 * b * rows * n_kv * hd * 2
+               + b * rows * 4)
+    pairs = sum(min(offset + i + 1, window or t) for i in range(s))
+    flops = 2 * 2 * b * nh * hd * pairs
+    bound, by = bound_ms(n_bytes, flops, "bfloat16")
+    return dict(ms=tm["kernel"], plain_ms=tm["plain"],
+                library_ms=tm["library"], bound_ms=bound, bound_by=by,
+                bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3,
+                ops_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3,
+                shape=f"{arch} B={b} S={s} offset={offset} T={t} nh={nh} "
+                      f"n_kv={n_kv} hd={hd}"
+                      f"{f' window={window}' if window else ''} bf16")
+
+
+def log_chunk_timing(t: dict) -> None:
+    log_timing("chunk_attention", t)
+    log(f"    bound by bytes {t['bytes_ms']:.4f} ms, by operations "
+        f"{t['ops_ms']:.4f} ms; kernel {t['plain_ms'] / t['ms']:.1f}x "
+        "faster than the plain chain")
+
+
+def chunk_batch(torch, cfg) -> dict:
+    """``CHUNK_PREFILL``'s seeded batch: B 32 prompts of up to 1,024
+    tokens, a full row, a padding row of length 1 and the rest drawn."""
+    c = CHUNK_PREFILL
+    gen = torch.Generator(device="cuda").manual_seed(209)
+    b, s = c["b"], c["s"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device="cuda")
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lens[:2] = torch.tensor([s, 1], dtype=torch.int32)
+    return {"tokens": tokens, "lens": lens}
+
+
+def chunked_pass(torch, model, params, batch) -> tuple:
+    """One ``Model.prefill_chunked`` pass at ``CHUNK_PREFILL``'s cache and
+    chunk after a warm-up pass: (device ms by CUDA events, logits,
+    cache)."""
+    c = CHUNK_PREFILL
+    model.prefill_chunked(params, batch, c["cache_len"], c["chunk"])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    logits, cache = model.prefill_chunked(params, batch, c["cache_len"],
+                                          c["chunk"])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), logits, cache
+
+
+def profile_chunked_pass(torch, model, params, batch, top: int = 8):
+    """The device operations of one ``CHUNK_PREFILL`` pass, from a
+    ``torch.profiler`` trace of the card: logs the total and the ``top``
+    kernels by device time (ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c = CHUNK_PREFILL
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill_chunked(params, batch, c["cache_len"], c["chunk"])
+        torch.cuda.synchronize()
+    rows = sorted(_device_rows(prof, 1), reverse=True)
+    log(f"  a chunked pass's device time {sum(r[0] for r in rows) / 1e3:.3f}"
+        f" ms in {sum(r[1] for r in rows)} kernel calls; the top {top}:")
+    for us, calls, name in rows[:top]:
+        log(f"    {us / 1e3:9.3f} ms {calls:5d} x {name[:110]}")
+
+
+def chunked_prefill(torch, pkg, ops) -> int:
+    """``CHUNK_PREFILL``: the closed cell's model at full width, bf16,
+    through ``Model.prefill_chunked`` as its engine prefills a long pass
+    (``chunk_batch``, chunks of 512, a cache of 1,024): ``chunk_attention``
+    launched layers x 2 times a pass, ``kv_pos`` equal to the one-shot
+    ``Model.prefill``'s (flash), its logits and valid K rows within bf16
+    ``TOL`` of that pass's and every row's argmax the same; then
+    ``serve_chunked`` on the same model.  Returns that run's
+    ``chunk_attention`` launches."""
+    c = CHUNK_PREFILL
+    cfg = pkg["get_config"](c["arch"])
+    model, params, _ = build_full_width(torch, pkg, cfg)
+    batch = chunk_batch(torch, cfg)
+    ops.reset_launch_counts()
+    ms, logits, cache = chunked_pass(torch, model, params, batch)
+    launches = ops.chunk_attention.launches
+    want = 2 * cfg.n_layers * -(-c["s"] // c["chunk"])   # two passes
+    one_logits, one_cache = model.prefill(params, batch, c["cache_len"])
+    valid = one_cache["kv_pos"] >= 0
+    d_logits = (logits.float() - one_logits.float()).abs().max().item()
+    agree = (logits.argmax(-1) == one_logits.argmax(-1)).float().mean()
+    agree = agree.item()
+    d_k = (cache["k"].float() - one_cache["k"].float()).abs()[valid].max()
+    d_k = d_k.item()
+    same_pos = bool((cache["kv_pos"] == one_cache["kv_pos"]).all())
+    lens = batch["lens"]
+    profile_chunked_pass(torch, model, params, batch)
+    log(f"  {cfg.name} prefill_chunked B={c['b']} S={c['s']} (lens "
+        f"{int(lens.min())}-{int(lens.max())}) cache={c['cache_len']} "
+        f"chunk={c['chunk']}: {ms:.3f} ms a pass on the device; "
+        f"chunk_attention launched {launches} in two passes (layers x "
+        f"chunks {want}); against the one-shot prefill: logits max|d| "
+        f"{d_logits:.3g}, argmax agree {agree:.4f}, valid K rows "
+        f"max|d| {d_k:.3g}, kv_pos equal {same_pos}")
+    if launches != want or not same_pos:
+        raise AssertionError(f"chunked prefill launched chunk_attention "
+                             f"{launches} times, not {want}, or its kv_pos "
+                             "differs from the one-shot prefill's")
+    tol = TOL["bfloat16"]
+    if d_logits > tol or d_k > tol or agree != 1.0:
+        raise AssertionError(f"chunked prefill against the one-shot: logits "
+                             f"max|d| {d_logits:.3g}, valid K rows max|d| "
+                             f"{d_k:.3g} (tolerance {tol}), argmax agree "
+                             f"{agree:.4f} (not 1)")
+    del cache, one_cache, logits, one_logits
+    served = serve_chunked(torch, pkg, ops, model, params)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return served
+
+
+def serve_chunked(torch, pkg, ops, model, params) -> int:
+    """``CHUNK_PREFILL``'s model through ``ServeEngine`` at the closed
+    cell's ``cache_len`` and ``prefill_chunk`` (``CHUNK_SERVE``'s agents,
+    prompts of 256-900 tokens): with the counts zeroed just before the run,
+    ``chunk_attention`` must launch n_layers x chunks of the batched
+    prefill passes longer than the chunk (at least one), flash n_layers x
+    the others and paged decode n_layers x decode steps, and every agent
+    must get its budget of tokens.  Returns ``chunk_attention``'s
+    launches."""
+    from repro_torch.engine import engine as engine_mod
+
+    c, cfg = CHUNK_PREFILL, model.cfg
+    toks = EventLog()
+    eng = pkg["ServeEngine"](
+        model, params, pkg["make_scheduler"]("justitia", 16384.0),
+        pool_tokens=16384, max_batch=8, cache_len=c["cache_len"],
+        prefill_chunk=c["chunk"], listener=toks,
+    )
+    eng.warmup()
+    agents, budgets = seeded_agents(
+        pkg["EngineAgent"], pkg["InferenceSpec"], pkg["agent_cost"],
+        CHUNK_SERVE["seed"], CHUNK_SERVE["n"], CHUNK_SERVE["prompt"],
+        CHUNK_SERVE["decode"], cfg.vocab)
+    for a in agents:
+        eng.submit_agent(a)
+    buckets = []         # one entry per batched prefill pass
+    write = engine_mod._prefill_write
+
+    def counted_write(model, cache_len, chunk, params, cache, tokens, *rest):
+        buckets.append(tokens.shape[1])
+        return write(model, cache_len, chunk, params, cache, tokens, *rest)
+
+    engine_mod._prefill_write = counted_write
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod._prefill_write = write
+    got = {"chunk_attention": ops.chunk_attention.launches,
+           "flash_attention": ops.flash_prefill.launches,
+           "paged_attention": ops.paged_gqa_decode.launches}
+    chunked = [s for s in buckets if s > c["chunk"]]
+    m, n = eng.metrics, cfg.n_layers
+    want = {"chunk_attention": n * sum(-(-s // c["chunk"]) for s in chunked),
+            "flash_attention": n * (len(buckets) - len(chunked)),
+            "paged_attention": n * m["decode_steps"]}
+    log(f"  {cfg.name} through ServeEngine (cache_len {c['cache_len']}, "
+        f"prefill_chunk {c['chunk']}): agents={len(agents)} "
+        f"completed={len(done)} prefill passes {len(buckets)} (buckets "
+        f"{sorted(buckets)}, {len(chunked)} chunked) decode_steps="
+        f"{m['decode_steps']} tokens={m['tokens']} in {wall:.3f} s; "
+        f"launches {got} (n_layers x chunks, passes and steps {want}: "
+        f"{got == want})")
+    if not chunked:
+        raise AssertionError("no prefill pass of the serving run chunked")
+    if got != want:
+        raise AssertionError(f"serving run launched {got}, not {want}")
+    check_glue_counts(ops, cfg, got["paged_attention"], "chunked serving")
+    if set(done) != set(budgets):
+        raise AssertionError(f"agents {set(budgets) - set(done)} did not "
+                             "complete")
+    for aid, budget in budgets.items():
+        out = toks.tokens.get(aid, [])
+        if len(out) != budget or not all(0 <= t < cfg.vocab for t in out):
+            raise AssertionError(f"agent {aid}: {len(out)} tokens, budget "
+                                 f"{budget}, or a token id out of range")
+    del eng
+    return got["chunk_attention"]
 
 
 def glue_counts(ops) -> dict:
@@ -3661,6 +4024,16 @@ def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     del model, params, cache
     gc.collect()
     torch.cuda.empty_cache()
+    cfg = pkg["get_config"](CHUNK_PREFILL["arch"])
+    model, params, _ = build_full_width(torch, pkg, cfg)
+    batch = chunk_batch(torch, cfg)
+    ms = chunked_pass(torch, model, params, batch)[0]
+    log(f"  {cfg.name} prefill_chunked at CHUNK_PREFILL: {ms:.3f} ms a pass "
+        "on the device")
+    profile_chunked_pass(torch, model, params, batch)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
     xlstm = pkg["Model"](pkg["get_config"]("xlstm-350m"), device="cuda")
     profile_prefill(torch, xlstm, xlstm.init(seed=0))
     return 0
@@ -3696,6 +4069,7 @@ def main(argv: list) -> int:
     from repro_torch.engine import EngineAgent, ServeEngine
     from repro_torch.kernels import ops, ref
     from repro_torch.models import Model
+    from repro_torch.models.layers import attention_any
 
     pkg = dict(get_config=get_config, InferenceSpec=InferenceSpec,
                agent_cost=agent_cost, make_scheduler=make_scheduler,
@@ -3743,12 +4117,11 @@ def main(argv: list) -> int:
                 f"  {fn[:90]}")
             if any(t in fn for t in TENSOR_CORE_KERNELS) and not c["HGMMA"]:
                 raise AssertionError(f"tensor-core kernel {fn} has no HGMMA")
-        if name == "flash_attention":
-            for inst in FLASH_TC_HD80:
-                n = sum(c["HGMMA"] for fn, c in counts.items() if inst in fn)
-                log(f"  flash_attention {inst}: HGMMA {n}")
-                if not n:
-                    raise AssertionError(f"{inst} has no HGMMA in the SASS")
+        for inst in TC_HD80.get(name, ()):
+            n = sum(c["HGMMA"] for fn, c in counts.items() if inst in fn)
+            log(f"  {name} {inst}: HGMMA {n}")
+            if not n:
+                raise AssertionError(f"{inst} has no HGMMA in the SASS")
     g, hd = GRANITE, XLSTM["hd"]
     qpk = g["nh"] // g["n_kv"]
     log(f"  dynamic shared memory per block: paged_attention "
@@ -3775,6 +4148,8 @@ def main(argv: list) -> int:
                                                split_plan, decode_page)),
                ("flash_attention", check_flash(ops, ref, torch, gen,
                                                flash_path)))}
+    err["chunk_attention"] = max(
+        check_chunk_attention(ops, torch, attention_any).values())
     err["mlstm_chunk"] = check_mlstm(ops, ref, torch, gen, mlstm)
     check_grad_guard(ops, torch)
     timing = {"paged_attention": time_paged(ops, ref, torch, gen),
@@ -3795,10 +4170,17 @@ def main(argv: list) -> int:
         log_timing(name, t)
     for name, t in time_families(ops, ref, torch).items():
         log_timing(name, t)
+    for arch, c in CHUNK_SHAPES.items():
+        for offset in c["offsets"]:
+            chunk_t = time_chunk(ops, torch, attention_any, arch, offset)
+            log_chunk_timing(chunk_t)
+            if (arch, offset) == ("h2o-danube-1.8b", 512):
+                timing["chunk_attention"] = chunk_t   # the closed cell's
     glue_err, glue_timing = check_glue(torch, ops, pkg)
     err.update(glue_err)
     timing.update(glue_timing)
     glue_steps(torch, pkg, ops)
+    chunk_launches = chunked_prefill(torch, pkg, ops)
 
     clock.start("4. reduced engines, GPU (kernels) against CPU (plain)")
     reduced_engine(torch, pkg, "granite-3-2b")
@@ -3898,12 +4280,17 @@ def main(argv: list) -> int:
     for name, n in examples.items():
         launches[name] += n
     clock.start(None)
+    launches["chunk_attention"] = chunk_launches   # phase 3's serving run
 
     sources = {
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:125"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:125"),
+        # chunked prefill's attention replaces no Pallas kernel: the JAX
+        # package's plain attention in its chunk step
+        "chunk_attention": ("src/repro_torch/kernels/csrc/chunk_attention.cu",
+                            "src/repro/models/transformer.py:170"),
         "mlstm_chunk": ("src/repro_torch/kernels/csrc/mlstm_chunk.cu",
                         "src/repro/kernels/mlstm_chunk.py:127"),
         # the decode block's glue replaces no Pallas kernel: the JAX

@@ -60,6 +60,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "flash_tc.cuh"
 #include "hopper.cuh"
 
 namespace repro_torch {
@@ -243,76 +244,6 @@ namespace tc {
 
 using namespace hopper;
 
-constexpr int kRows = 64;    // q rows of a warpgroup's tile; kv tokens a tile
-constexpr int kStages = 4;   // K/V ring depth
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (N == 32) {
-    wgmma_rs_n32(d, a, db);
-  } else if constexpr (N == 64) {
-    wgmma_rs_n64(d, a, db);
-  } else {
-    wgmma_rs_n128(d, a, db);
-  }
-}
-
-// A 64 x HD bf16 tile in shared memory: kMain column blocks of
-// kSwizzle / 2 columns, each 64 rows of kSwizzle bytes in that swizzle,
-// and, where HD is not a whole number of them (hd 80 = 64 + 16), a tail
-// block of the last 16 columns, 64 rows of 32 bytes in the 32-byte
-// swizzle.  The tensor cores see the tail as one more k16 step of Q K^T
-// and one m64n16 product of P V, so no padded column is loaded or
-// multiplied.
-template <int HD>
-struct Layout {
-  static constexpr int kSwizzle = HD >= 64 ? 128 : 64;  // bytes of an atom row
-  static constexpr int kColBlock = kRows * kSwizzle;  // 64-row column block
-  static constexpr int kMain = HD * 2 / kSwizzle;     // whole column blocks
-  static constexpr int kMainCols = kMain * kSwizzle / 2;
-  static constexpr int kTailCols = HD - kMainCols;    // 16 at hd 80, else 0
-  static constexpr int kTailSwizzle = 32;             // bytes of a tail row
-  static constexpr int kTailOff = kMain * kColBlock;  // the tail block
-  static constexpr int kTile = kTailOff + kRows * kTailCols * 2;  // 64 x HD
-  static_assert(kTailCols == 0 || kTailCols * 2 == kTailSwizzle,
-                "a tail of one 32-byte swizzle atom at most");
-};
-
-// the tensor maps of the tail block (hd 80's columns 64-79: a box of 16
-// columns in the 32-byte swizzle); unused at the other head dims
-struct TailMaps {
-  CUtensorMap q, k, v, o;
-};
-
-template <int HD, int WG>
-constexpr size_t smem_bytes() {
-  // 1 KB of slack to align the swizzled tiles, two buffers of WG q tiles,
-  // kStages K/V tile pairs, and the mbarriers (q full and empty per
-  // buffer; K/V full and empty per stage)
-  return 1024 + (size_t)(2 * WG + 2 * kStages) * Layout<HD>::kTile +
-         8 * (4 + 2 * kStages);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// One work item: a 64-row q tile of WG q heads that share a kv head, for
-// one batch row.  Items are numbered longest causal rows first, and block
-// j of G takes item r * G + j in even rounds r and r * G + G - 1 - j in
-// odd ones, which evens out the blocks' work.
-struct Item {
-  int iq, hk, hq0, b, kt0, n_kt;
-};
-
-__device__ __forceinline__ int item_index(int r, int j, int G) {
-  return r * G + ((r & 1) ? G - 1 - j : j);
-}
-
 __device__ __forceinline__ Item item_at(int w, int n_qt, int batch, int qpk,
                                         int WG, int n_kv, int window) {
   const int groups = qpk / WG;
@@ -344,9 +275,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
     const __grid_constant__ TailMaps tail) {
   using L = Layout<HD>;
   constexpr int SW = L::kSwizzle;
-  constexpr int TSW = L::kTailSwizzle;
   constexpr int CB = L::kMain;       // whole column blocks of a tile
-  constexpr int KSTEPS = L::kMainCols / 16;  // k16 steps of Q K^T in them
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* q_s = base;                       // 2 buffers x WG tiles
@@ -456,27 +385,8 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
       const uint32_t k_addr = smem_u32(kv_s + stage * 2 * L::kTile);
       const uint32_t v_addr = k_addr + L::kTile;
 
-      // S = Q K^T: k16 steps walk 32 bytes along the swizzled rows, then on
-      // to the next column block
       float s[32];
-#pragma unroll
-      for (int c = 0; c < 32; ++c) s[c] = 0.f;
-      hold(s);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const uint32_t off = (kk * 32) / SW * L::kColBlock + (kk * 32) % SW;
-        wgmma_ss_n64<0, 0>(s, desc<SW>(q_addr + off, 16, 8 * SW),
-                     desc<SW>(k_addr + off, 16, 8 * SW), kk > 0);
-      }
-      if constexpr (L::kTailCols > 0) {
-        // the tail block's one k16 step: its whole 32-byte rows
-        wgmma_ss_n64<0, 0>(s, desc<TSW>(q_addr + L::kTailOff, 16, 8 * TSW),
-                           desc<TSW>(k_addr + L::kTailOff, 16, 8 * TSW), 1);
-      }
-      wg_commit();
-      wg_wait_all();
-      hold(s);
+      qk_tile<HD>(s, q_addr, k_addr);
 
       // mask the diagonal tile and the window's left edge
       const int k0 = kt * kRows;
@@ -488,80 +398,7 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
           if (kj > qi || (window > 0 && kj <= qi - window)) s[c] = -INFINITY;
         }
       }
-      // online softmax over the quad that holds each row
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int c = 0; c < 32; c += 4) {
-        mx0 = fmaxf(mx0, fmaxf(s[c], s[c + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[c + 2], s[c + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      // fully masked so far: m stays -inf and every p is 0
-      const float u0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
-      const float u1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
-      const float a0 = ex2(m0 * scale_log2 - u0);   // 0 while m is -inf
-      const float a1 = ex2(m1 * scale_log2 - u1);
-      m0 = mx0;
-      m1 = mx1;
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int c = 0; c < 32; c += 4) {
-        s[c] = ex2(fmaf(s[c], scale_log2, -u0));
-        s[c + 1] = ex2(fmaf(s[c + 1], scale_log2, -u0));
-        s[c + 2] = ex2(fmaf(s[c + 2], scale_log2, -u1));
-        s[c + 3] = ex2(fmaf(s[c + 3], scale_log2, -u1));
-        sum0 += s[c] + s[c + 1];
-        sum1 += s[c + 2] + s[c + 3];
-      }
-      // l stays a per-thread partial sum: every thread of a quad scales it
-      // by the same alpha, so the quad's sum is taken once at the end
-      l0 = l0 * a0 + sum0;
-      l1 = l1 * a1 + sum1;
-#pragma unroll
-      for (int c = 0; c < HD / 2; c += 4) {
-        o[c] *= a0;
-        o[c + 1] *= a0;
-        o[c + 2] *= a1;
-        o[c + 3] *= a1;
-      }
-      // O += P V, P as bf16 A fragments: k16 step kk takes columns 16kk ..
-      // 16kk + 15, i.e. accumulator registers 8kk .. 8kk + 7
-      uint32_t pa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          pa[kk][q] = pack_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
-        }
-      }
-      hold(o);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        // V tile read MN-major: 16 token rows per step, column blocks
-        // apart by one 64-row block
-        if constexpr (L::kTailCols == 0) {
-          wgmma_rs<HD>(o, pa[kk],
-                       desc<SW>(v_addr + kk * 16 * SW, L::kColBlock, 8 * SW));
-        } else {
-          // the main blocks into o's first kMainCols / 2 floats, the tail
-          // block (one 16-column atom) into the last 8
-          wgmma_rs<L::kMainCols>(
-              *reinterpret_cast<float(*)[L::kMainCols / 2]>(o), pa[kk],
-              desc<SW>(v_addr + kk * 16 * SW, L::kColBlock, 8 * SW));
-          wgmma_rs_n16(
-              *reinterpret_cast<float(*)[8]>(o + L::kMainCols / 2), pa[kk],
-              desc<TSW>(v_addr + L::kTailOff + kk * 16 * TSW,
-                        kRows * TSW, 8 * TSW));
-        }
-      }
-      wg_commit();
-      wg_wait_all();
-      hold(o);
+      softmax_pv<HD>(s, o, m0, m1, l0, l1, scale_log2, v_addr);
 
       // this warpgroup is done with the stage
       if ((tid & 127) == 0) mbar_arrive(&kv_empty[stage]);
@@ -570,40 +407,8 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1) flash_tc_kernel(
     // epilogue: the normalised tile goes into this warpgroup's q buffer,
     // which the last Q K^T has finished reading, in the swizzled layout of
     // the tensor map, and leaves by one TMA store per column block
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
     uint8_t* o_s = q_s + (qb * WG + wg) * L::kTile;
-#pragma unroll
-    for (int c = 0; c < L::kMainCols / 2; c += 4) {
-      const int col = 2 * c + t2;                  // 8j + 2t, j = c / 4
-      const int cb = col / (SW / 2);
-      const int chunk = (col % (SW / 2)) / 8;      // 16-byte chunk of a row
-      const int in_chunk = (col % 8) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(
-          o_s + cb * L::kColBlock + r0 * SW +
-          ((chunk ^ swizzle_row<SW>(r0)) * 16) + in_chunk) =
-          __floats2bfloat162_rn(o[c] * inv0, o[c + 1] * inv0);
-      *reinterpret_cast<__nv_bfloat162*>(
-          o_s + cb * L::kColBlock + (r0 + 8) * SW +
-          ((chunk ^ swizzle_row<SW>(r0 + 8)) * 16) + in_chunk) =
-          __floats2bfloat162_rn(o[c + 2] * inv1, o[c + 3] * inv1);
-    }
-#pragma unroll
-    for (int c = L::kMainCols / 2; c < HD / 2; c += 4) {
-      // the tail block: 32-byte rows of two 16-byte chunks
-      const int chunk = (c - L::kMainCols / 2) / 4;
-      uint8_t* tail_s = o_s + L::kTailOff + t2 * 2;
-      *reinterpret_cast<__nv_bfloat162*>(
-          tail_s + r0 * TSW + ((chunk ^ swizzle_row<TSW>(r0)) * 16)) =
-          __floats2bfloat162_rn(o[c] * inv0, o[c + 1] * inv0);
-      *reinterpret_cast<__nv_bfloat162*>(
-          tail_s + (r0 + 8) * TSW + ((chunk ^ swizzle_row<TSW>(r0 + 8)) * 16)) =
-          __floats2bfloat162_rn(o[c + 2] * inv1, o[c + 3] * inv1);
-    }
+    store_tile<HD>(o, l0, l1, o_s, r0, t2);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     if ((tid & 127) == 0) {
@@ -630,59 +435,27 @@ template <int HD, int WG>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int nh, int n_kv, int seq, int window, float scale,
            const int64_t* st, cudaStream_t stream) {
-  using L = Layout<HD>;
-  constexpr int SW = L::kSwizzle;
-  constexpr int MC = L::kMainCols;
-  // the main blocks' maps, and the tail block's from its own first column
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   TailMaps tail = {};
-  int err = make_map(&tm_q, q, MC, nh, seq, batch, st[0], st[1], st[2], SW);
+  int err = make_tile_maps<HD>(&tm_q, &tail.q, q, nh, seq, batch, st);
   if (!err) {
-    err = make_map(&tm_k, k, MC, n_kv, seq, batch, st[3], st[4], st[5], SW);
+    err = make_tile_maps<HD>(&tm_k, &tail.k, k, n_kv, seq, batch, st + 3);
   }
   if (!err) {
-    err = make_map(&tm_v, v, MC, n_kv, seq, batch, st[3], st[4], st[5], SW);
+    err = make_tile_maps<HD>(&tm_v, &tail.v, v, n_kv, seq, batch, st + 3);
   }
   if (!err) {
-    err = make_map(&tm_o, out, MC, nh, seq, batch, st[6], st[7], st[8], SW);
-  }
-  if constexpr (L::kTailCols > 0) {
-    constexpr int TC = L::kTailCols, TSW = L::kTailSwizzle;
-    if (!err) {
-      err = make_map(&tail.q, q, TC, nh, seq, batch, st[0], st[1], st[2],
-                     TSW, MC);
-    }
-    if (!err) {
-      err = make_map(&tail.k, k, TC, n_kv, seq, batch, st[3], st[4], st[5],
-                     TSW, MC);
-    }
-    if (!err) {
-      err = make_map(&tail.v, v, TC, n_kv, seq, batch, st[3], st[4], st[5],
-                     TSW, MC);
-    }
-    if (!err) {
-      err = make_map(&tail.o, out, TC, nh, seq, batch, st[6], st[7], st[8],
-                     TSW, MC);
-    }
+    err = make_tile_maps<HD>(&tm_o, &tail.o, out, nh, seq, batch, st + 6);
   }
   if (err) return err;
-  constexpr size_t smem = smem_bytes<HD, WG>();
-  cudaError_t e = allow_smem(flash_tc_kernel<HD, WG>, smem);
-  if (e != cudaSuccess) return (int)e;
-  int device = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&device);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_tc_kernel<HD, WG>, WG * 128 + 32, smem);
-  }
-  if (e != cudaSuccess) return (int)e;
   const int qpk = nh / n_kv;
   const int n_qt = seq / kRows;
-  const int n_items = n_qt * batch * n_kv * (qpk / WG);
-  const int grid = min(n_items, max(per_sm, 1) * sms);
+  constexpr size_t smem = smem_bytes<HD, WG>();
+  int grid = 0;
+  const cudaError_t e =
+      persistent_grid(flash_tc_kernel<HD, WG>, WG * 128 + 32, smem,
+                      n_qt * batch * n_kv * (qpk / WG), &grid);
+  if (e != cudaSuccess) return (int)e;
   flash_tc_kernel<HD, WG><<<grid, WG * 128 + 32, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_o, n_qt, batch, n_kv, qpk, window,
       scale * 1.4426950408889634f, tail);

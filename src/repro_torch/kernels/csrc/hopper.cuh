@@ -63,6 +63,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 1-D tensor map (the coordinate in elements) into shared
+// memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 // one box of a 4-D tensor map from shared memory to global memory, in the
 // issuing thread's bulk group
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
@@ -284,6 +295,23 @@ inline int make_map_4d(CUtensorMap* map, const void* ptr,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), d, s,
       b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, mode,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// 1-D map of an int32 array of n elements, one box of `box` elements
+// (a multiple of four), no swizzle; reads past n fill zeros
+inline int make_map_i32(CUtensorMap* map, const void* ptr, int64_t n,
+                        int box) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t d[1] = {(cuuint64_t)n};
+  const cuuint64_t s[1] = {(cuuint64_t)n * 4};  // unread at rank 1
+  const cuuint32_t b[1] = {(cuuint32_t)box};
+  const cuuint32_t elem[1] = {1};
+  CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(ptr), d, s, b,
+      elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -9,7 +9,8 @@ branch's plain versions stay differentiable.  Training runs the plain
 attention and mLSTM by choice, as the JAX package trains on no Pallas
 kernel.  Each wrapper counts its launches in an integer attribute
 (``paged_gqa_decode.launches``, ``flash_prefill.launches``,
-``mlstm_chunk.launches``, and the decode block's glue:
+``chunk_attention.launches``, ``mlstm_chunk.launches``, and the decode
+block's glue:
 ``fused_rms_norm``, ``fused_add_rms_norm``, ``rope_kv_write`` and
 ``silu_mul``), so a run can show that its main path went through the
 kernels.  The counts are raised under a lock: a replicated
@@ -48,6 +49,7 @@ import functools
 import torch
 from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch.kernels import chunk_attention as _chunk
 from repro_torch.kernels import decode_glue as _glue
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mlstm_chunk as _mlstm
@@ -63,7 +65,8 @@ from repro_torch.kernels.ref import (
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 _KERNELS = {"paged_attention": _paged, "flash_attention": _flash,
-            "mlstm_chunk": _mlstm, "decode_glue": _glue}
+            "chunk_attention": _chunk, "mlstm_chunk": _mlstm,
+            "decode_glue": _glue}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC"]
@@ -254,6 +257,45 @@ def flash_prefill(
 flash_prefill.launches = 0
 
 
+def chunk_attention(
+    q,          # (B, S, nh, hd) a chunk of queries
+    k_cache,    # (B, T, n_kv, hd)
+    v_cache,
+    positions,  # (B, S) the queries' positions
+    kv_pos,     # (B, T) int32 the cache rows' positions, -1 = invalid
+    *,
+    window: int = 0,
+):
+    """Chunked prefill's attention: the queries against the whole cache,
+    masked by ``kv_pos``; returns (B, S, nh, hd).  On the CPU it is
+    ``attention_any(q, k_cache, v_cache, window=window,
+    q_positions=positions, kv_positions=kv_pos, kv_valid=kv_pos >= 0)``,
+    as ``dense_block_chunk`` calls it; on the card the kernel computes the
+    same (hd^-0.5 applied to its f32 scores) for the inputs of
+    ``chunk_attention.chunk_path`` over the slot cache's layout (see
+    ``kernels/chunk_attention.py``), and refuses every other input."""
+    if q.device.type == "cpu":
+        # imported here: models.layers imports the models package, whose
+        # transformer imports this module
+        from repro_torch.models.layers import attention_any
+
+        return attention_any(q, k_cache, v_cache, window=window,
+                             q_positions=positions, kv_positions=kv_pos,
+                             kv_valid=kv_pos >= 0)
+    if _any_dtensor(q, k_cache, v_cache):
+        raise ValueError("chunk_attention: the kernel takes plain tensors; "
+                         "a sharded plan keeps attention_any")
+    refuse_grad("chunk_attention", q, k_cache, v_cache)
+    out = _chunk.chunk_attention(
+        kernel_library()["chunk_attention"], q, k_cache, v_cache, positions,
+        kv_pos, window=window, scale=q.shape[-1] ** -0.5)
+    _count(chunk_attention)
+    return out
+
+
+chunk_attention.launches = 0
+
+
 def mlstm_chunk(
     q,        # (B, H, S, hd)
     k,
@@ -373,8 +415,8 @@ def silu_mul(a, b):
 silu_mul.launches = 0
 
 #: every wrapper that counts its launches
-COUNTED = (paged_gqa_decode, flash_prefill, mlstm_chunk, fused_rms_norm,
-           fused_add_rms_norm, rope_kv_write, silu_mul)
+COUNTED = (paged_gqa_decode, flash_prefill, chunk_attention, mlstm_chunk,
+           fused_rms_norm, fused_add_rms_norm, rope_kv_write, silu_mul)
 
 
 def _count(wrapper) -> None:

@@ -24,10 +24,15 @@ Attention runs through the CUDA kernels where the JAX engine ran plain jnp:
   asserts it when ``Model(debug_checks=True)``).  On plain CUDA tensors the
   block's glue runs in the fused kernels too (``fused_decode_path``): the
   norms, RoPE with the cache writes, and SiLU-and-multiply;
-* chunked prefill (``dense_block_chunk``, queries at an offset) stays on the
-  plain ``attention_any``: no Pallas kernel computes it.  So does
-  ``prefill_slice`` (one slot's slice against the live cache, the engine's
-  fused prefill), as in JAX;
+* chunked prefill (``dense_block_chunk``, queries at an offset against
+  the cache, masked by ``kv_pos``) calls ``chunk_attention`` where
+  ``chunk_attention_path`` allows it: plain bf16 CUDA tensors at a head
+  dim of the tensor-core kernels and a chunk of whole 64-row tiles.  The
+  kernel computes the plain ``attention_any`` that JAX runs there (no
+  Pallas kernel computes it), which the CPU, float32, the other head dims
+  and a sharded plan's DTensors keep.  ``prefill_slice`` (one slot's slice
+  against the live cache, the engine's fused prefill) stays on
+  ``attention_any``, as in JAX;
 * decode over a ring cache (a sliding window smaller than the cache
   length: ``T == window`` rows, decode position p at row ``p mod T``)
   stays on the plain ``gqa_attention`` with ``kv_pos``, the window and
@@ -93,7 +98,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.chunk_attention import chunk_path
 from repro_torch.kernels.ops import (
+    chunk_attention,
     flash_prefill,
     fused_add_rms_norm,
     fused_rms_norm,
@@ -427,7 +434,8 @@ def dense_block_chunk(p, x, pos, positions, lens, k_cache, v_cache, kv_pos,
                       cfg: ModelConfig):
     """S-token chunk step against a (non-ring) KV cache: chunk K/V is
     written into the cache first (in place), then the queries attend over
-    the whole cache masked by ``kv_pos``."""
+    the whole cache masked by ``kv_pos``, through the ``chunk_attention``
+    kernel where ``chunk_attention_path`` allows it."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = attention_qkv(
         p["attn"], h, positions, cfg.rope_theta, cfg.use_rope
@@ -435,16 +443,33 @@ def dense_block_chunk(p, x, pos, positions, lens, k_cache, v_cache, kv_pos,
     update_cache(k_cache, k_new, pos)
     update_cache(v_cache, v_new, pos)
     update_pos_masked(kv_pos, pos, x.shape[1], lens)
-    att = attention_any(
-        q, k_cache, v_cache,
-        window=cfg.sliding_window,
-        q_positions=positions,
-        kv_positions=kv_pos,
-        kv_valid=kv_pos >= 0,
-    )
+    if chunk_attention_path(q, k_cache):
+        att = chunk_attention(q, k_cache, v_cache, positions, kv_pos,
+                              window=cfg.sliding_window)
+    else:
+        att = attention_any(
+            q, k_cache, v_cache,
+            window=cfg.sliding_window,
+            q_positions=positions,
+            kv_positions=kv_pos,
+            kv_valid=kv_pos >= 0,
+        )
     x = x + attention_out(p["attn"], att)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + block_ffn(p, h2, cfg)[0], k_cache, v_cache, kv_pos
+
+
+def chunk_attention_path(q, k_cache) -> bool:
+    """Whether a chunk step's attention runs the ``chunk_attention``
+    kernel: plain (not DTensor) CUDA tensors that ``chunk_path`` takes
+    (bf16 q and cache, hd 32, 64, 80 or 128, a chunk of a multiple of 64
+    queries).  The CPU, float32, other head dims, ragged chunks and a
+    sharded plan's DTensors keep ``attention_any``."""
+    return (q.device.type == "cuda"
+            and not isinstance(q, DTensor)
+            and not isinstance(k_cache, DTensor)
+            and k_cache.dtype == q.dtype
+            and chunk_path(q.dtype, q.shape[-1], q.shape[1]))
 
 
 def fused_decode_path(x, k_cache, cfg: ModelConfig, ring: bool,

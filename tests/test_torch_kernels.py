@@ -17,6 +17,7 @@ from repro.kernels import mlstm_chunk_kernel
 from repro.kernels import ops as jops
 from repro.models.layers import gqa_attention as jax_gqa_attention
 from repro_torch.kernels import decode_glue, ops
+from repro_torch.kernels.chunk_attention import chunk_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk
 from repro_torch.kernels.paged_attention import paged_attention
@@ -155,9 +156,17 @@ def _glue_call(launcher, dtype=torch.float32, hd=64, other=None):
 GLUE_LAUNCHERS = ["rms_norm", "add_rms_norm", "rope_kv_write", "silu_mul"]
 
 
+def _chunk_call(dtype=torch.bfloat16, hd=64):
+    """A chunk of 64 queries against a 128-row cache, on CPU tensors."""
+    q = torch.zeros((1, 64, 4, hd), dtype=dtype)
+    k = torch.zeros((1, 128, 2, hd), dtype=dtype)
+    return chunk_attention(_no_call, q, k, k, torch.arange(64)[None],
+                           torch.zeros((1, 128), dtype=torch.int32))
+
+
 @pytest.mark.parametrize("launcher",
                          ["paged", "flash", "mlstm", "mlstm_tensor_core"]
-                         + GLUE_LAUNCHERS)
+                         + GLUE_LAUNCHERS + ["chunk"])
 def test_cuda_launchers_refuse_cpu_tensors(launcher):
     """The CUDA path never quietly runs on CPU tensors: the launchers check
     the device before touching the C entry point (which is never called
@@ -169,6 +178,8 @@ def test_cuda_launchers_refuse_cpu_tensors(launcher):
     with pytest.raises(ValueError, match="CUDA"):
         if launcher in GLUE_LAUNCHERS:
             _glue_call(launcher, torch.bfloat16)
+        elif launcher == "chunk":
+            _chunk_call()
         elif launcher == "paged":
             pages = torch.zeros((4, 16, 2, 32))
             paged_attention(no_call, q, pages, pages,
@@ -204,6 +215,12 @@ def test_cuda_launchers_refuse_cpu_tensors(launcher):
                  TypeError, "mixed", id="add_rms_norm-mixed"),
     pytest.param("silu_mul", 64, torch.bfloat16, torch.float32, TypeError,
                  "mixed", id="silu_mul-mixed"),
+    pytest.param("chunk", 96, torch.bfloat16, None, ValueError, "head_dim",
+                 id="chunk-head_dim"),
+    pytest.param("chunk", 64, torch.float32, None, TypeError, "dtype",
+                 id="chunk-float32"),
+    pytest.param("chunk", 64, torch.float16, None, TypeError, "dtype",
+                 id="chunk-float16"),
 ])
 def test_cuda_launcher_argument_checks(launcher, hd, dtype, other, exc,
                                        match):
@@ -213,6 +230,8 @@ def test_cuda_launcher_argument_checks(launcher, hd, dtype, other, exc,
         if launcher == "flash":
             q = torch.zeros((1, 2, 64, hd), dtype=dtype)
             flash_attention(None, q, q, q)
+        elif launcher == "chunk":
+            _chunk_call(dtype, hd)
         else:
             _glue_call(launcher, dtype, hd, other)
 
