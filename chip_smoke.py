@@ -679,8 +679,7 @@ def check_grad_guard(ops, torch) -> None:
             q[:, 0], cuda(4, 16, 2, 64), cuda(4, 16, 2, 64), pages,
             torch.tensor([40], dtype=torch.int32, device="cuda")),
         "flash_prefill": lambda q: ops.flash_prefill(
-            q, cuda(1, 64, 2, 64), cuda(1, 64, 2, 64), block_q=64,
-            block_k=64),
+            q, cuda(1, 64, 2, 64), cuda(1, 64, 2, 64)),
         "mlstm_chunk": lambda q: ops.mlstm_chunk(
             q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2),
             cuda(1, 4, 64), cuda(1, 4, 64)),
@@ -748,8 +747,7 @@ def check_flash(ops, ref, torch, gen, flash_path) -> dict:
                             device="cuda").to(dtype)
             k, v = (torch.randn(b, s, n_kv, hd, generator=gen_case,
                                 device="cuda").to(dtype) for _ in range(2))
-            got = ops.flash_prefill(q, k, v, window=window, block_q=64,
-                                    block_k=64)
+            got = ops.flash_prefill(q, k, v, window=window)
             want = ref.flash_attention_ref(
                 (q * hd ** -0.5).transpose(1, 2), k.transpose(1, 2),
                 v.transpose(1, 2), window=window,
@@ -771,7 +769,7 @@ def check_flash(ops, ref, torch, gen, flash_path) -> dict:
                 errs[label] = err
     q = torch.zeros((1, 100, 2, 64), device="cuda")
     try:
-        ops.flash_prefill(q, q, q, block_q=64, block_k=64)
+        ops.flash_prefill(q, q, q)
     except ValueError:
         log("  flash S=100 with 64-token blocks: ValueError, as the Pallas "
             "contract asks")
@@ -843,8 +841,7 @@ def time_flash(ops, ref, torch, gen, shape=None, n_sets: int = 8):
                             device="cuda").to(dt) for _ in range(2))
         sets.append((q, k, v))
     def kernel(q, k, v):
-        return ops.flash_prefill(q, k, v, window=window, block_q=64,
-                                 block_k=64)
+        return ops.flash_prefill(q, k, v, window=window)
 
     def plain(q, k, v):
         return ref.flash_attention_ref((q * hd ** -0.5).transpose(1, 2),
@@ -2934,7 +2931,7 @@ def profile_hybrid_prefill(torch, model, params, batch, cache_len: int):
     from repro_torch.models import ssm, transformer
 
     orig = {"mamba2": ssm.mamba2_forward_chunked,
-            "shared": transformer.dense_block_train}
+            "shared": transformer.dense_block_prefill}
     wall = dict.fromkeys(orig, 0.0)
 
     def timed(key):
@@ -2948,7 +2945,7 @@ def profile_hybrid_prefill(torch, model, params, batch, cache_len: int):
         return run
 
     ssm.mamba2_forward_chunked = timed("mamba2")
-    transformer.dense_block_train = timed("shared")
+    transformer.dense_block_prefill = timed("shared")
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2957,7 +2954,7 @@ def profile_hybrid_prefill(torch, model, params, batch, cache_len: int):
         total = time.perf_counter() - t0
     finally:
         ssm.mamba2_forward_chunked = orig["mamba2"]
-        transformer.dense_block_train = orig["shared"]
+        transformer.dense_block_prefill = orig["shared"]
     log(f"  prefill wall {total * 1e3:.1f} ms: Mamba2 calls "
         f"{wall['mamba2'] * 1e3:.1f} ms ({wall['mamba2'] / total:.3f}), "
         f"shared attention blocks {wall['shared'] * 1e3:.1f} ms "
@@ -3325,7 +3322,7 @@ def sharded_serving(torch, ops, pkg, mesh, card: str) -> dict:
     t0 = time.perf_counter()
     plan = build_dryrun(cfg.name, "prefill_32k", mesh, cfg_override=cfg,
                         batch_override=b, seq_override=s, params=params,
-                        batch=batch, kernels=True, cache_len=cache_len)
+                        batch=batch, cache_len=cache_len)
     logits, cache = lower_plan(plan)
     got = [logits.full_tensor()]
     nxt = got[-1][:, 0].argmax(-1).to(torch.int32)[:, None]
@@ -3333,7 +3330,7 @@ def sharded_serving(torch, ops, pkg, mesh, card: str) -> dict:
     dplan = build_dryrun(cfg.name, "decode_32k", mesh, cfg_override=cfg,
                          batch_override=b, seq_override=cache_len,
                          params=params, batch={"tokens": nxt, "pos": pos},
-                         kernels=True, cache=cache)
+                         cache=cache)
     toks = [nxt]
     for i in range(steps):
         args = () if i == 0 else (

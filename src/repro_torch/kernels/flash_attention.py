@@ -4,8 +4,8 @@
 The CUDA counterpart of the JAX package's Pallas ``flash_attention``.  This
 module checks the arguments, picks the kernel's instantiation and
 launches; ``ops.flash_prefill`` is the public wrapper, which keeps the
-block-size contract, takes the plain version for CPU tensors and counts
-launches.
+block contract (``PREFILL_BLOCK``), takes the plain version for CPU
+tensors and counts launches.
 
 Layouts (as the Pallas kernel's): q (B, nh, S, hd), k/v (B, n_kv, S, hd),
 kv head = q head // qpk.  q is not pre-scaled: the kernel multiplies the
@@ -35,6 +35,10 @@ SYMBOL = "flash_attention_launch"
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                ctypes.c_float, ctypes.c_int])
+#: S must be a multiple of this (the Pallas kernel's block contract at
+#: 64-token blocks); prefill pads a prompt to it (the engine's prompt
+#: bucket is 64 tokens)
+PREFILL_BLOCK = 64
 #: q rows of the tensor-core kernel's tile (and kv tokens of a K/V tile)
 TC_ROWS = 64
 #: head dims the tensor-core kernel is instantiated for

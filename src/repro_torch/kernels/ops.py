@@ -185,6 +185,14 @@ def _any_dtensor(*xs) -> bool:
     return any(isinstance(x, DTensor) for x in xs)
 
 
+def plain_cuda(*xs) -> bool:
+    """Whether every tensor is a CUDA tensor and none a DTensor: the inputs
+    that a kernel with no CPU branch of its own (the decode glue,
+    ``chunk_attention``) is routed to by ``models/transformer.py``."""
+    return all(x.device.type == "cuda" and not isinstance(x, DTensor)
+               for x in xs)
+
+
 def paged_gqa_decode(
     q,              # (B, nh, hd) one query token per sequence
     k_pages,        # (P, block_size, n_kv, hd)
@@ -225,22 +233,21 @@ def flash_prefill(
     v,
     *,
     window: int = 0,
-    block_q: int = 128,
-    block_k: int = 128,
 ):
     """Causal (optionally SWA) prefill attention; returns (B, S, nh, hd).
 
-    Keeps the Pallas kernel's contract: S must be divisible by both block
-    sizes, else ``ValueError``.  The kernel applies the hd^-0.5 scale to
-    its f32 scores; the plain version takes q pre-scaled.
+    Keeps the Pallas kernel's contract at its blocks of
+    ``PREFILL_BLOCK`` (64) tokens: S must be a multiple of 64, else
+    ``ValueError``.  The kernel applies the hd^-0.5 scale to its f32
+    scores; the plain version takes q pre-scaled.
     """
     if _any_dtensor(q, k, v):
         return _on_shards("flash_prefill", flash_prefill,
-                          "bsnh,bsnh,bsnh->bsnh", q, k, v, window=window,
-                          block_q=block_q, block_k=block_k)
+                          "bsnh,bsnh,bsnh->bsnh", q, k, v, window=window)
     s, hd = q.shape[1], q.shape[-1]
-    if s % block_q or s % block_k:
-        raise ValueError(f"S={s} must be divisible by block sizes")
+    if s % _flash.PREFILL_BLOCK:
+        raise ValueError(f"S={s} must be a multiple of "
+                         f"{_flash.PREFILL_BLOCK}")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
         out = flash_attention_ref(qt * hd ** -0.5, kt, vt, window=window)

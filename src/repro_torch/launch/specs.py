@@ -143,7 +143,7 @@ def build_dryrun(arch: str, shape_name: str, mesh,
                  attn_mode: str = "head_dim", cfg_override=None,
                  seq_override: int = 0, optimized: bool = False,
                  params=None, batch: Optional[dict] = None,
-                 kernels: bool = False, cache_len: int = 0,
+                 cache_len: int = 0,
                  cache: Optional[dict] = None) -> DryrunPlan:
     """``optimized=True`` applies the JAX package's §Perf sharding scheme:
       O1 train/prefill: head-sharded attention when n_heads divides the
@@ -152,8 +152,8 @@ def build_dryrun(arch: str, shape_name: str, mesh,
       O3 decode: KV cache sequence dim sharded over "model".
 
     ``params``/``batch``: real tensors to shard (the whole tree on every
-    rank); by default ``meta`` stand-ins.  ``kernels`` runs the serving
-    plans through the flash and paged kernels (real CUDA tensors only).
+    rank), whose serving plans run the kernels' route; by default ``meta``
+    stand-ins, whose plans run JAX's plain composition (``Model.prefill``).
     ``cache_len``: the prefill plan's cache rows (default: the prompt's).
     ``cache``: the decode plan's cache (a prefill plan's output, say),
     else an empty one of ``seq_len`` rows.
@@ -210,8 +210,7 @@ def build_dryrun(arch: str, shape_name: str, mesh,
             cache = model.init_cache(params, b, rows)
             cache = {k: distribute(v, mesh, cspecs[k])
                      for k, v in cache.items()}
-            return model.prefill(params, batch, cache_len=rows,
-                                 kernels=kernels, cache=cache)
+            return model.prefill(params, batch, cache_len=rows, cache=cache)
 
         return plan(prefill_fn, (dparams, dbatch), (pspecs, bspecs),
                     "prefill")
@@ -229,7 +228,7 @@ def build_dryrun(arch: str, shape_name: str, mesh,
     dcache = {k: distribute(v, mesh, cspecs[k]) for k, v in cache.items()}
 
     def decode_fn(params, cache, tokens, pos):
-        return model.decode(params, cache, tokens, pos, kernels=kernels)
+        return model.decode(params, cache, tokens, pos)
 
     return plan(decode_fn, (dparams, dcache, dbatch["tokens"],
                             dbatch["pos"]),

@@ -8,9 +8,13 @@ position tensor ``kv_pos`` ``(L, B, T)`` (``-1`` = invalid).  Where JAX
 returns a new cache, the port updates the caller's cache tensors in place
 and returns the same dict.
 
-Attention runs through the CUDA kernels where the JAX engine ran plain jnp:
+Attention runs through the kernels' wrappers (``kernels/ops.py``) where the
+JAX engine ran plain jnp, except on ``meta`` tensors (the dry-run's plans),
+where ``_prefill_attention``, ``_decode_attention`` and ``xlstm_pair`` run
+JAX's plain composition; the kernels with no CPU branch at the block's
+level run only on ``ops.plain_cuda`` tensors:
 
-* one-shot prefill (``dense_block_train``) calls ``flash_prefill``.  The
+* one-shot prefill (``dense_block_prefill``) calls ``flash_prefill``.  The
   JAX block's ``lens`` mask only hides keys that the causal mask already
   hides from the real rows; padded rows are thrown away by ``_gather_last``
   and masked by ``_fill_kv``, so the logits and the valid cache rows match;
@@ -80,7 +84,7 @@ attention over ``cross_k``/``cross_v`` ``(L, B, F, n_kv, hd)``, as JAX.
 Training (``hidden``, ``forward``) runs no kernel: the JAX package trains
 on its plain attention (``attention_any``) and its jnp chunkwise mLSTM, as
 no Pallas kernel has a backward, and so does the port
-(``dense_block_train(attention="plain")``, ``ssm.mlstm_forward_train``).
+(``dense_block_train``, ``ssm.mlstm_forward_train``).
 The kernels' wrappers raise on the card where an input requires grad.
 ``jax.checkpoint`` (remat) becomes ``torch.utils.checkpoint`` without
 reentrance.  The serving entry points run under ``torch.no_grad()``, as
@@ -99,12 +103,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.chunk_attention import chunk_path
+from repro_torch.kernels.flash_attention import PREFILL_BLOCK
 from repro_torch.kernels.ops import (
     chunk_attention,
     flash_prefill,
     fused_add_rms_norm,
     fused_rms_norm,
     paged_gqa_decode,
+    plain_cuda,
     rope_kv_write,
     silu_mul,
 )
@@ -137,9 +143,6 @@ from repro_torch.models.shardlib import (
 #: tokens per page when decode attention views a slot cache as pages, for
 #: every cache length that it divides (``decode_page``)
 DECODE_PAGE = 16
-#: prefill attention pads S to a multiple of this and uses it as the flash
-#: kernel's block size (the engine's prompt bucket is 64 tokens)
-PREFILL_BLOCK = 64
 #: the ssm family's cache leaves, in the order the xLSTM blocks return them
 #: (mLSTM C, n, m; sLSTM c, n, h, m)
 SSM_STATE_KEYS = ("mlstm_c", "mlstm_n", "mlstm_m",
@@ -270,16 +273,36 @@ def check_slot_contiguous(kv_pos, pos) -> None:
         )
 
 
-def _prefill_attention(q, k, v, window: int):
-    """Causal (+SWA) attention of a whole prompt through ``flash_prefill``:
-    S is padded to a multiple of PREFILL_BLOCK (padded keys lie after every
-    real query, so the causal mask hides them) and the padding cut off.
-    DTensors are redistributed to shards holding whole heads (split on the
-    heads where ``n_heads`` and ``n_kv`` both divide the mesh axis, else
-    replicated) and the kernel runs on those."""
-    return local_call(functools.partial(_prefill_attention_local,
-                                        window=window),
-                      "bsnh,bsnh,bsnh->bsnh", q, k, v, keep="bn", split="n")
+def _plain_attention(q, k, v, positions, lens, window: int):
+    """JAX's attention of a whole sequence: ``attention_any`` with the keys
+    at or past each row's ``lens`` masked (``None``: none), differentiable
+    on every device."""
+    kv_valid = None
+    if lens is not None:
+        kv_valid = (torch.arange(q.shape[1], device=q.device)[None, :]
+                    < lens[:, None])
+    return attention_any(q, k, v, window=window, q_positions=positions,
+                         kv_positions=positions, kv_valid=kv_valid)
+
+
+def _prefill_attention(q, k, v, positions, lens, window: int,
+                       padded_rows: bool = False):
+    """Causal (+SWA) attention of a whole prompt (``positions``
+    ``arange(S)`` per row) through ``flash_prefill``: S is padded to a
+    multiple of PREFILL_BLOCK (padded keys lie after every real query, so
+    the causal mask hides them) and the padding cut off; the real rows need
+    no ``lens`` mask (see the module doc).  ``padded_rows=True`` also makes
+    the padded rows JAX's (``_padded_queries``).  DTensors are
+    redistributed to shards holding whole heads (split on the heads where
+    ``n_heads`` and ``n_kv`` both divide the mesh axis, else replicated) and
+    the kernel runs on those.  On ``meta`` tensors it is JAX's
+    ``_plain_attention``."""
+    if q.is_meta:
+        return _plain_attention(q, k, v, positions, lens, window)
+    att = local_call(functools.partial(_prefill_attention_local,
+                                       window=window),
+                     "bsnh,bsnh,bsnh->bsnh", q, k, v, keep="bn", split="n")
+    return _padded_queries(q, k, v, att, lens, window) if padded_rows else att
 
 
 def _prefill_attention_local(q, k, v, *, window: int):
@@ -287,8 +310,7 @@ def _prefill_attention_local(q, k, v, *, window: int):
     pad = -s % PREFILL_BLOCK
     if pad:
         q, k, v = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
-    out = flash_prefill(q, k, v, window=window, block_q=PREFILL_BLOCK,
-                        block_k=PREFILL_BLOCK)
+    out = flash_prefill(q, k, v, window=window)
     return out[:, :s] if pad else out
 
 
@@ -312,12 +334,19 @@ def slot_pages(b: int, t: int, pos):
     return tables, (pos + 1).to(torch.int32)
 
 
-def _decode_attention(q, k_cache, v_cache, pos, pages=None):
+def _decode_attention(q, k_cache, v_cache, pos, pages=None, kv_pos=None,
+                      window: int = 0):
     """One query token per slot against the slot cache, through
     ``paged_gqa_decode`` with a slot-contiguous block table; ``pages`` is
     ``slot_pages(B, T, pos)`` where the caller has built it already.
     DTensors run on shards holding whole heads of whole sequences, as in
-    ``_prefill_attention``, each building its own block tables."""
+    ``_prefill_attention``, each building its own block tables.  On
+    ``meta`` tensors it is JAX's masked attention over ``kv_pos`` and the
+    ``window``."""
+    if q.is_meta:
+        return gqa_attention(q, k_cache, v_cache, window=window,
+                             q_positions=pos[:, None], kv_positions=kv_pos,
+                             kv_valid=kv_pos >= 0)
     if isinstance(k_cache, DTensor):
         return local_call(_decode_attention, "bsnh,btnh,btnh,b->bsnh", q,
                           k_cache, v_cache, pos, keep="bn", split="n")
@@ -391,43 +420,33 @@ def _padded_queries(q, k, v, att, lens, window: int):
     return att
 
 
-def dense_block_train(p, x, positions, cfg: ModelConfig, attn_mask_lens=None,
-                      padded_rows: bool = False, attention: str = "flash"):
-    """Full-sequence causal block (training / prefill compute).
-
-    Returns (x, (k, v, moe_aux)) so prefill can collect the cache.
-    ``attention="flash"`` (prefill) runs ``flash_prefill``; ``positions``
-    must then be ``arange(S)`` per row, as every caller passes, and
-    ``attn_mask_lens`` needs no mask for the real rows (see the module
-    doc); ``padded_rows=True`` also makes the padded rows JAX's
-    (``_padded_queries``), for the hybrid, whose padded rows run on
-    through the Mamba2 state.  ``attention="plain"`` (training) runs JAX's
-    ``attention_any`` with its ``lens`` mask, differentiable on every
-    device.
-    """
+def _dense_block(p, x, positions, cfg: ModelConfig, attend):
+    """The full-sequence causal block around ``attend(q, k, v)``.  Returns
+    (x, (k, v, moe_aux)), so that prefill can collect the cache."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attention_qkv(p["attn"], h, positions, cfg.rope_theta,
                             cfg.use_rope)
-    if attention == "flash":
-        att = _prefill_attention(q, k, v, cfg.sliding_window)
-        if padded_rows and attn_mask_lens is not None:
-            att = _padded_queries(q, k, v, att, attn_mask_lens,
-                                  cfg.sliding_window)
-    elif attention == "plain":
-        kv_valid = None
-        if attn_mask_lens is not None:
-            t = x.shape[1]
-            kv_valid = (torch.arange(t, device=x.device)[None, :]
-                        < attn_mask_lens[:, None])
-        att = attention_any(q, k, v, window=cfg.sliding_window,
-                            q_positions=positions, kv_positions=positions,
-                            kv_valid=kv_valid)
-    else:
-        raise ValueError(f"attention {attention!r} is not 'flash' or 'plain'")
-    x = x + attention_out(p["attn"], att)
+    x = x + attention_out(p["attn"], attend(q, k, v))
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = block_ffn(p, h2, cfg)
     return x + y, (k, v, aux)
+
+
+def dense_block_train(p, x, positions, cfg: ModelConfig):
+    """Training's full-sequence block: JAX's ``_plain_attention``,
+    differentiable on every device.  Returns (x, (k, v, moe_aux))."""
+    return _dense_block(p, x, positions, cfg, lambda q, k, v: (
+        _plain_attention(q, k, v, positions, None, cfg.sliding_window)))
+
+
+def dense_block_prefill(p, x, positions, lens, cfg: ModelConfig,
+                        padded_rows: bool = False):
+    """Prefill's full-sequence block: ``_prefill_attention`` over rows of
+    ``lens`` tokens (``padded_rows=True`` for the hybrid, whose padded rows
+    run on through the Mamba2 state).  Returns (x, (k, v, moe_aux))."""
+    return _dense_block(p, x, positions, cfg, lambda q, k, v: (
+        _prefill_attention(q, k, v, positions, lens, cfg.sliding_window,
+                           padded_rows)))
 
 
 def dense_block_chunk(p, x, pos, positions, lens, k_cache, v_cache, kv_pos,
@@ -461,28 +480,20 @@ def dense_block_chunk(p, x, pos, positions, lens, k_cache, v_cache, kv_pos,
 
 def chunk_attention_path(q, k_cache) -> bool:
     """Whether a chunk step's attention runs the ``chunk_attention``
-    kernel: plain (not DTensor) CUDA tensors that ``chunk_path`` takes
-    (bf16 q and cache, hd 32, 64, 80 or 128, a chunk of a multiple of 64
-    queries).  The CPU, float32, other head dims, ragged chunks and a
-    sharded plan's DTensors keep ``attention_any``."""
-    return (q.device.type == "cuda"
-            and not isinstance(q, DTensor)
-            and not isinstance(k_cache, DTensor)
-            and k_cache.dtype == q.dtype
+    kernel: ``plain_cuda`` tensors that ``chunk_path`` takes (bf16 q and
+    cache, hd 32, 64, 80 or 128, a chunk of a multiple of 64 queries).  The
+    CPU, float32, other head dims, ragged chunks and a sharded plan's
+    DTensors keep ``attention_any``."""
+    return (plain_cuda(q, k_cache) and k_cache.dtype == q.dtype
             and chunk_path(q.dtype, q.shape[-1], q.shape[1]))
 
 
-def fused_decode_path(x, k_cache, cfg: ModelConfig, ring: bool,
-                      kernels: bool) -> bool:
+def fused_decode_path(x, k_cache, cfg: ModelConfig, ring: bool) -> bool:
     """Whether a decode block runs its glue through the fused kernels
-    (``_dense_block_decode_fused``): a full cache, ``kernels=True``,
-    rotary positions and plain (not DTensor) CUDA tensors.  A ring, a
-    sharded plan's DTensors, ``kernels=False`` and the CPU keep the
-    composed path."""
-    return (kernels and not ring and cfg.use_rope
-            and x.device.type == "cuda"
-            and not isinstance(x, DTensor)
-            and not isinstance(k_cache, DTensor))
+    (``_dense_block_decode_fused``): a full cache, rotary positions and
+    ``plain_cuda`` tensors.  A ring, a sharded plan's DTensors, the CPU and
+    ``meta`` keep the composed path."""
+    return not ring and cfg.use_rope and plain_cuda(x, k_cache)
 
 
 def _dense_block_decode_fused(p, x, pos, k_cache, v_cache, kv_pos,
@@ -512,17 +523,15 @@ def _dense_block_decode_fused(p, x, pos, k_cache, v_cache, kv_pos,
 
 
 def dense_block_decode(p, x, pos, k_cache, v_cache, kv_pos, cfg: ModelConfig,
-                       ring: bool, pages=None, kernels: bool = True,
-                       rope=None):
+                       ring: bool, pages=None, rope=None):
     """One-token decode step against a (possibly ring) KV cache, updated in
-    place.  A full cache decodes through the paged kernel (``pages``: the
-    step's ``slot_pages``, built here when not given), on plain CUDA
+    place.  A full cache decodes through ``_decode_attention`` (``pages``:
+    the step's ``slot_pages``, built there when not given), on plain CUDA
     tensors with the fused glue (``fused_decode_path``; ``rope``: the
     step's ``rope_tables``, built here when not given, as ``Model.decode``
     builds them once for every layer), a ring through the plain masked
-    attention, as does a full cache with ``kernels=False`` (the JAX
-    package's decode attention)."""
-    if fused_decode_path(x, k_cache, cfg, ring, kernels):
+    attention (the JAX package's decode attention)."""
+    if fused_decode_path(x, k_cache, cfg, ring):
         if rope is None:
             rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta,
                                x.device)
@@ -547,13 +556,8 @@ def dense_block_decode(p, x, pos, k_cache, v_cache, kv_pos, cfg: ModelConfig,
         update_cache(k_cache, k_new, pos)
         update_cache(v_cache, v_new, pos)
         update_pos(kv_pos, pos, 1)
-        if kernels:
-            att = _decode_attention(q, k_cache, v_cache, pos, pages)
-        else:
-            att = gqa_attention(q, k_cache, v_cache,
-                                window=cfg.sliding_window,
-                                q_positions=pos[:, None],
-                                kv_positions=kv_pos, kv_valid=kv_pos >= 0)
+        att = _decode_attention(q, k_cache, v_cache, pos, pages, kv_pos,
+                                cfg.sliding_window)
     x = x + attention_out(p["attn"], att)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + block_ffn(p, h2, cfg)[0], k_cache, v_cache, kv_pos
@@ -578,12 +582,10 @@ def init_decoder_blocks(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def dense_block_decode_selfonly(p, x, pos, k_cache, v_cache, kv_pos,
-                                cfg: ModelConfig, pages=None,
-                                kernels: bool = True):
+                                cfg: ModelConfig, pages=None):
     """Self-attention part of a decoder block (cross-attention handled
-    outside), against a full cache updated in place, through the paged
-    kernel, or with ``kernels=False`` JAX's masked attention without a
-    window."""
+    outside), against a full cache updated in place, through
+    ``_decode_attention`` with no window."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = attention_qkv(
         p["attn"], h, pos[:, None], cfg.rope_theta, cfg.use_rope
@@ -591,11 +593,7 @@ def dense_block_decode_selfonly(p, x, pos, k_cache, v_cache, kv_pos,
     update_cache(k_cache, k_new, pos)
     update_cache(v_cache, v_new, pos)
     update_pos(kv_pos, pos, 1)
-    if kernels:
-        att = _decode_attention(q, k_cache, v_cache, pos, pages)
-    else:
-        att = gqa_attention(q, k_cache, v_cache, q_positions=pos[:, None],
-                            kv_positions=kv_pos, kv_valid=kv_pos >= 0)
+    att = _decode_attention(q, k_cache, v_cache, pos, pages, kv_pos)
     return x + attention_out(p["attn"], att), k_cache, v_cache, kv_pos
 
 
@@ -633,19 +631,18 @@ def init_xlstm_pairs(gen: torch.Generator, cfg: ModelConfig, dtype, device):
     }
 
 
-def xlstm_pair(lp, x, cfg: ModelConfig, m_state, s_state, *, decode: bool,
-               kernels: bool = True):
+def xlstm_pair(lp, x, cfg: ModelConfig, m_state, s_state, *, decode: bool):
     """rms_norm -> mLSTM -> residual -> rms_norm -> sLSTM -> residual.
     Returns (x, the pair's seven state tensors in ``SSM_STATE_KEYS`` order).
-    The whole-prompt mLSTM runs the ``mlstm_chunk`` kernel, or with
-    ``kernels=False`` the plain chunkwise form in JAX's chunks."""
+    The whole-prompt mLSTM runs the ``mlstm_chunk`` kernel, or on ``meta``
+    tensors the plain chunkwise form in JAX's chunks."""
     hm = rms_norm(x, lp["ln_m"], cfg.norm_eps)
     if decode:
         y, m_state = ssm.mlstm_decode(lp["mlstm"], hm, m_state)
-    elif kernels:
-        y, m_state = ssm.mlstm_forward_chunked(lp["mlstm"], hm, m_state)
-    else:
+    elif hm.is_meta:
         y, m_state = ssm.mlstm_forward_train(lp["mlstm"], hm)
+    else:
+        y, m_state = ssm.mlstm_forward_chunked(lp["mlstm"], hm, m_state)
     x = x + y
     hs = rms_norm(x, lp["ln_s"], cfg.norm_eps)
     slstm = ssm.slstm_decode if decode else ssm.slstm_forward
@@ -902,8 +899,7 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.kind in ("dense", "moe", "vlm"):
             def body(h, lp):
-                h, (_, _, a) = dense_block_train(lp, h, positions, cfg,
-                                                 attention="plain")
+                h, (_, _, a) = dense_block_train(lp, h, positions, cfg)
                 return h, a
 
             body = _remat(body, remat)
@@ -936,8 +932,7 @@ class Model:
             def body(h, group):
                 for lp in stack_layers(group):
                     h = mamba_one(h, lp)
-                return dense_block_train(shared, h, positions, cfg,
-                                         attention="plain")[0]
+                return dense_block_train(shared, h, positions, cfg)[0]
 
             body = _remat(body, remat)
             for group in stack_layers(params["super_blocks"]):
@@ -1029,7 +1024,7 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, batch: dict, cache_len: int, *,
-                kernels: bool = True, cache: Optional[dict] = None):
+                cache: Optional[dict] = None):
         """Process the full prompt; returns (last-position logits, cache).
 
         batch: {"tokens": (B,S), optional "embeds", optional "lens": (B,)}.
@@ -1038,11 +1033,10 @@ class Model:
         or the encoder-decoder's audio frames (B, F, D), which it needs.
         Other families ignore them, as in JAX.
 
-        ``kernels=False`` runs the plain attention and the plain chunkwise
-        mLSTM (JAX's prefill) in place of the flash and mLSTM kernels: the
-        dry-run's plans choose it, on ``meta`` tensors.  ``cache``: an
-        empty cache of ``init_cache``'s shapes to fill (a sharded plan's
-        DTensors), else one is made.
+        On ``meta`` tensors (the dry-run's plans) it runs JAX's plain
+        attention and plain chunkwise mLSTM in place of the flash and mLSTM
+        kernels.  ``cache``: an empty cache of ``init_cache``'s shapes to
+        fill (a sharded plan's DTensors), else one is made.
         """
         cfg = self.cfg
         _check_family(cfg)
@@ -1069,24 +1063,21 @@ class Model:
             # every row runs its whole S tokens (the engine prefills ssm
             # prompts one at a time at their exact length)
             for l, lp in enumerate(self.layer_params(params)):
-                x, states = xlstm_pair(lp, x, cfg, None, None, decode=False,
-                                       kernels=kernels)
+                x, states = xlstm_pair(lp, x, cfg, None, None, decode=False)
                 for key, st in zip(SSM_STATE_KEYS, states):
                     cache[key][l] = st
             return self._logits(params, _gather_last(x, lens)), cache
-        attention = "flash" if kernels else "plain"
         if cfg.kind == "encdec":
             x, ks, vs = self._decoder_prefill(params, batch["embeds"], x,
-                                              positions, cache, kernels)
+                                              positions, cache)
         elif cfg.kind == "hybrid":
             x, ks, vs = self._hybrid_prefill(params, x, positions, lens,
-                                             cache, kernels)
+                                             cache)
         else:
             ks, vs = [], []
             for lp in self.layer_params(params):
-                x, (k, v, _) = dense_block_train(lp, x, positions, cfg,
-                                                 attn_mask_lens=lens,
-                                                 attention=attention)
+                x, (k, v, _) = dense_block_prefill(lp, x, positions, lens,
+                                                   cfg)
                 x = shard(x, "batch", "seq", "embed")
                 ks.append(k)
                 vs.append(v)
@@ -1116,13 +1107,12 @@ class Model:
             enc = enc + gated_mlp(lp["mlp"], h2)
         return rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
 
-    def _decoder_prefill(self, params, frames, x, positions, cache,
-                         kernels: bool = True):
+    def _decoder_prefill(self, params, frames, x, positions, cache):
         """The encoder over ``frames`` (B, F, D) plus ``enc_pos``, then the
         decoder layers over the prompt embeddings ``x``: causal
-        self-attention through flash (with ``kernels=False`` JAX's plain
-        causal attention), cross-attention on the plain attention.  Writes ``cross_k``/``cross_v`` (L, B, F, ...) into the
-        cache; returns x and the self-attention K/V per layer."""
+        self-attention through ``_prefill_attention``, cross-attention on
+        the plain attention.  Writes ``cross_k``/``cross_v`` (L, B, F, ...)
+        into the cache; returns x and the self-attention K/V per layer."""
         cfg = self.cfg
         enc = frames.to(_dtype(cfg))
         f = enc.shape[1]
@@ -1136,11 +1126,7 @@ class Model:
             hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = attention_qkv(lp["attn"], hn, positions,
                                     cfg.rope_theta, cfg.use_rope)
-            if kernels:
-                att = _prefill_attention(q, k, v, 0)
-            else:
-                att = attention_any(q, k, v, q_positions=positions,
-                                    kv_positions=positions)
+            att = _prefill_attention(q, k, v, positions, None, 0)
             x = x + attention_out(lp["attn"], att)
             hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
             kx = project_heads(enc, lp["xattn"]["wk"])
@@ -1166,13 +1152,12 @@ class Model:
         cache["cross_k"], cache["cross_v"] = cross_k, cross_v
         return x, ks, vs
 
-    def _hybrid_prefill(self, params, x, positions, lens, cache,
-                        kernels: bool = True):
+    def _hybrid_prefill(self, params, x, positions, lens, cache):
         """Each super block: its Mamba2 layers (chunkwise SSD, every row's
         whole S, padding included, as JAX runs them), writing their final
-        states into the cache, then the shared attention block through
-        flash (with ``kernels=False`` JAX's plain masked attention).
-        Returns x and the shared block's K/V per application."""
+        states into the cache, then the shared attention block
+        (``dense_block_prefill``).  Returns x and the shared block's K/V per
+        application."""
         cfg = self.cfg
         shared = params["shared_attn"]
         ks, vs = [], []
@@ -1183,9 +1168,8 @@ class Model:
                 x = x + y
                 cache["mamba_h"][l, j] = st
                 cache["mamba_conv"][l, j] = conv
-            x, (k, v, _) = dense_block_train(
-                shared, x, positions, cfg, attn_mask_lens=lens,
-                padded_rows=True, attention="flash" if kernels else "plain")
+            x, (k, v, _) = dense_block_prefill(shared, x, positions, lens,
+                                               cfg, padded_rows=True)
             ks.append(k)
             vs.append(v)
         return x, ks, vs
@@ -1337,12 +1321,11 @@ class Model:
         return cache
 
     @torch.no_grad()
-    def decode(self, params, cache: dict, tokens, pos, *,
-               kernels: bool = True):
+    def decode(self, params, cache: dict, tokens, pos):
         """One decode step.  tokens: (B,1) int; pos: (B,) positions of the
-        new token.  Returns (logits (B,1,V), cache updated in place).
-        ``kernels=False`` runs JAX's masked attention over the cache in
-        place of the paged kernel (the dry-run's plans)."""
+        new token.  Returns (logits (B,1,V), cache updated in place).  On
+        ``meta`` tensors (the dry-run's plans) it runs JAX's masked
+        attention over the cache in place of the paged kernel."""
         cfg = self.cfg
         _check_family(cfg)
         x = self._embed(params, tokens, pos[:, None])
@@ -1363,17 +1346,15 @@ class Model:
         # one page table, and on the fused path one set of rotary tables,
         # for every layer of a step on a full cache
         b, t = cache["k"].shape[1:3]
-        pages = (None if ring or not kernels
-                 or isinstance(cache["k"], DTensor) else slot_pages(b, t, pos))
+        pages = (None if ring or isinstance(cache["k"], DTensor)
+                 else slot_pages(b, t, pos))
         rope = (rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta,
                             x.device)
-                if fused_decode_path(x, cache["k"], cfg, ring, kernels)
-                else None)
+                if fused_decode_path(x, cache["k"], cfg, ring) else None)
         kv = [(cache["k"][l], cache["v"][l], cache["kv_pos"][l])
               for l in range(cache["k"].shape[0])]
         if cfg.kind == "encdec":
-            x = self._decoder_decode(params, x, pos, kv, cache, pages,
-                                     kernels)
+            x = self._decoder_decode(params, x, pos, kv, cache, pages)
         elif cfg.kind == "hybrid":
             shared = params["shared_attn"]
             for l, group in enumerate(self.layer_params(params)):
@@ -1386,17 +1367,16 @@ class Model:
                     st.copy_(new_st)
                     conv.copy_(new_conv)
                 x = dense_block_decode(shared, x, pos, *kv[l], cfg, ring,
-                                       pages, kernels, rope)[0]
+                                       pages, rope)[0]
         else:
             for lp, layer_kv in zip(self.layer_params(params), kv):
                 x = dense_block_decode(lp, x, pos, *layer_kv, cfg, ring,
-                                       pages, kernels, rope)[0]
+                                       pages, rope)[0]
         if self.debug_checks and not ring:
             check_slot_contiguous(cache["kv_pos"], pos)
         return self._logits(params, x), cache
 
-    def _decoder_decode(self, params, x, pos, kv, cache, pages,
-                        kernels: bool = True):
+    def _decoder_decode(self, params, x, pos, kv, cache, pages):
         """The encoder-decoder's decode layers: self-attention through the
         paged kernel (``dense_block_decode_selfonly``), then
         cross-attention on the plain attention over the cached
@@ -1408,7 +1388,7 @@ class Model:
         q_pos = torch.full((b, 1), f + 1, dtype=torch.int32, device=x.device)
         for l, lp in enumerate(self.layer_params(params)):
             x = dense_block_decode_selfonly(lp, x, pos, *kv[l], cfg,
-                                            pages, kernels)[0]
+                                            pages)[0]
             hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
             qx = project_heads(hx, lp["xattn"]["wq"])
             xat = gqa_attention(qx, cache["cross_k"][l], cache["cross_v"][l],

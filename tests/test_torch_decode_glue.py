@@ -3,8 +3,8 @@ branch (``kernels/ref.py``) against the composition of ``models/layers.py``
 and ``models/transformer.py`` that its kernel replaces, bit for bit; the
 fused block and a whole fused decode step against the composed ones, bit
 for bit, with the fused path forced on CPU tensors; and the dispatch
-predicate that keeps ring caches, DTensors, ``kernels=False`` and the CPU
-on the composed path.
+predicate that keeps ring caches, DTensors, ``meta`` and the CPU on the
+composed path.
 
 The CUDA kernels themselves need the card: ``chip_smoke.py`` phase 3
 holds them against these plain versions there.
@@ -204,38 +204,40 @@ def test_fused_decode_step_equals_composed_step(monkeypatch, arch, over):
 
 def test_dispatch_predicate_takes_only_plain_cuda_full_caches():
     """Each condition alone sends the block to the composed path: a ring,
-    ``kernels=False``, no rotary positions, a DTensor, a CPU tensor."""
+    no rotary positions, a DTensor, a CPU tensor, a meta tensor."""
     cfg = get_config("granite-3-2b")
     card = types.SimpleNamespace(device=torch.device("cuda"))
-    assert fused_decode_path(card, card, cfg, ring=False, kernels=True)
-    assert not fused_decode_path(card, card, cfg, ring=True, kernels=True)
-    assert not fused_decode_path(card, card, cfg, ring=False, kernels=False)
+    assert fused_decode_path(card, card, cfg, ring=False)
+    assert not fused_decode_path(card, card, cfg, ring=True)
     no_rope = get_config("whisper-tiny")
-    assert not fused_decode_path(card, card, no_rope, ring=False,
-                                 kernels=True)
+    assert not fused_decode_path(card, card, no_rope, ring=False)
     dt = mock.MagicMock(spec=DTensor)
     dt.device = torch.device("cuda")
-    assert not fused_decode_path(dt, card, cfg, ring=False, kernels=True)
-    assert not fused_decode_path(card, dt, cfg, ring=False, kernels=True)
-    cpu = torch.zeros(1)
-    assert not fused_decode_path(cpu, cpu, cfg, ring=False, kernels=True)
+    assert not fused_decode_path(dt, card, cfg, ring=False)
+    assert not fused_decode_path(card, dt, cfg, ring=False)
+    for device in ("cpu", "meta"):
+        other = torch.zeros(1, device=device)
+        assert not fused_decode_path(other, other, cfg, ring=False)
 
 
-@pytest.mark.parametrize("arch,cache_len,kernels", [
-    ("granite-3-2b", T, True), ("granite-3-2b", T, False),
-    ("h2o-danube-1.8b", 64, True)], ids=["full", "no_kernels", "ring"])
-def test_composed_paths_launch_no_glue_kernel(arch, cache_len, kernels):
-    """A decode step on the CPU over a full cache, with ``kernels=False``
-    and over a ring (reduced h2o-danube's 64-token window as the cache)
-    counts no launch of any wrapper (checked by the fixture)."""
+@pytest.mark.parametrize("arch,cache_len,device", [
+    ("granite-3-2b", T, "cpu"), ("granite-3-2b", T, "meta"),
+    ("h2o-danube-1.8b", 64, "cpu")], ids=["full", "meta", "ring"])
+def test_composed_paths_launch_no_glue_kernel(arch, cache_len, device):
+    """A decode step over a full cache on the CPU and on ``meta`` tensors,
+    and over a ring on the CPU (reduced h2o-danube's 64-token window as
+    the cache), counts no launch of any wrapper (checked by the fixture;
+    on meta a wrapper would try to launch and raise)."""
     cfg = get_config(arch).reduced()
-    model = Model(cfg, device="cpu")
+    model = Model(cfg, device=device)
     params = model.init(seed=1)
     cache = model.init_cache(params, 2, cache_len)
-    pos = torch.tensor([0, 3], dtype=torch.int32)
-    model.decode(params, cache, torch.tensor([[1], [2]]), pos,
-                 kernels=kernels)
-    assert (cache["kv_pos"][:, 1, 3] == 3).all()
+    pos = torch.tensor([0, 3], dtype=torch.int32, device=device)
+    logits, _ = model.decode(params, cache,
+                             torch.tensor([[1], [2]], device=device), pos)
+    assert logits.shape == (2, 1, cfg.vocab)
+    if device == "cpu":
+        assert (cache["kv_pos"][:, 1, 3] == 3).all()
 
 
 @pytest.mark.parametrize("d,rows,want", [

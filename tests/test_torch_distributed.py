@@ -135,7 +135,7 @@ WORKER = textwrap.dedent("""
                             cfg_override=cfg, batch_override=4,
                             seq_override=32, params=params,
                             batch={"tokens": tokens, "lens": lens},
-                            kernels=True, cache_len=64)
+                            cache_len=64)
         logits, cache = lower_plan(plan)
         heads = cache["k"].placements
         steps, err = [], 0.0
@@ -154,7 +154,7 @@ WORKER = textwrap.dedent("""
                                      cfg_override=cfg, batch_override=4,
                                      seq_override=64, params=params,
                                      batch={"tokens": tok, "pos": pos},
-                                     kernels=True, cache=cache)
+                                     cache=cache)
                 logits, cache = lower_plan(dplan)
             else:
                 args = (dplan.args[0], cache,

@@ -112,7 +112,7 @@ def test_flash_prefill_plain_matches_pallas(b, s, nh, nkv, hd, blk, window):
     )
     got = ops.flash_prefill(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        window=window, block_q=blk, block_k=blk,
+        window=window,
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert ops.flash_prefill.launches == 0
@@ -121,7 +121,7 @@ def test_flash_prefill_plain_matches_pallas(b, s, nh, nkv, hd, blk, window):
 def test_flash_prefill_rejects_misaligned_seq():
     q = torch.zeros((1, 100, 2, 64))
     with pytest.raises(ValueError):
-        ops.flash_prefill(q, q, q, block_q=64, block_k=64)
+        ops.flash_prefill(q, q, q)
     with pytest.raises(ValueError):
         jops.flash_prefill(jnp.zeros((1, 100, 2, 64)), jnp.zeros((1, 100, 2, 64)),
                            jnp.zeros((1, 100, 2, 64)), block_q=64,

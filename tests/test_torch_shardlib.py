@@ -223,10 +223,10 @@ def test_kernel_wrappers_refuse_a_split_head_dim(mesh):
 
     q = meta_dtensor(mesh, (2, 64, 4, 32), (Shard(0), Shard(3)))
     with pytest.raises(ValueError, match="heads-local"):
-        ops.flash_prefill(q, q, q, block_q=64, block_k=64)
+        ops.flash_prefill(q, q, q)
     qs = meta_dtensor(mesh, (2, 64, 4, 32), (Replicate(), Shard(1)))
     with pytest.raises(ValueError, match="heads-local"):
-        ops.flash_prefill(qs, qs, qs, block_q=64, block_k=64)
+        ops.flash_prefill(qs, qs, qs)
     qd = meta_dtensor(mesh, (2, 4, 32), (Shard(0), Shard(2)))
     pages = meta_dtensor(mesh, (8, 16, 2, 32), (Replicate(), Shard(3)))
     table = torch.zeros(2, 4, dtype=torch.int32)
@@ -236,8 +236,9 @@ def test_kernel_wrappers_refuse_a_split_head_dim(mesh):
 
 
 def test_meta_prefill_takes_the_plain_attention_by_argument():
-    """On meta tensors the kernel path tries to launch (and fails without
-    a card); the plain attention runs only where the caller asks."""
+    """On meta tensors prefill and decode take JAX's plain attention with
+    no argument: a kernel wrapper would try to launch, and fail without a
+    card."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
@@ -246,10 +247,12 @@ def test_meta_prefill_takes_the_plain_attention_by_argument():
     params = model.init()
     batch = {"tokens": torch.zeros((2, 64), dtype=torch.int32,
                                    device="meta")}
-    logits, _ = model.prefill(params, batch, cache_len=64, kernels=False)
+    logits, cache = model.prefill(params, batch, cache_len=80)
     assert logits.shape == (2, 1, cfg.vocab)
-    with pytest.raises(RuntimeError):
-        model.prefill(params, batch, cache_len=64)
+    tokens = torch.zeros((2, 1), dtype=torch.int32, device="meta")
+    pos = torch.zeros((2,), dtype=torch.int32, device="meta")
+    logits, _ = model.decode(params, cache, tokens, pos)
+    assert logits.shape == (2, 1, cfg.vocab) and logits.is_meta
 
 
 def test_meshes_refuse_a_world_of_another_size(mesh):

@@ -469,7 +469,7 @@ def test_cpu_wrappers_keep_their_grad_fn():
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(1, 64, 4, 32, generator=gen, requires_grad=True)
     k = torch.randn(1, 64, 2, 32, generator=gen, requires_grad=True)
-    out = ops.flash_prefill(q, k, k, block_q=64, block_k=64)
+    out = ops.flash_prefill(q, k, k)
     assert out.grad_fn is not None
     pages = torch.randn(4, 16, 2, 32, generator=gen, requires_grad=True)
     out = ops.paged_gqa_decode(q[:, 0], pages, pages,
