@@ -83,7 +83,13 @@ Phases, each of which fails the run (exit code 1) on error:
    (``CHUNK_SERVE``: prompts of 256-900 tokens), the counts zeroed just
    before the run: ``chunk_attention`` n_layers x the chunks of its
    chunked passes, flash n_layers x its one-shot passes, paged decode
-   n_layers x its steps;
+   n_layers x its steps; then three profiled ``ServeEngine`` steps at
+   the closed cell's engine (``CLOSED_TRAFFIC``), which must hold n_layers
+   x their decode steps kernels named ``paged_split_kernel``.  Paged
+   decode is also checked and timed at the benchmark cells' calls
+   (``PAGED_SERVING``: ragged lengths of ``serving_lengths``, SDPA with a
+   boolean length mask as the library call), and each paged timing logs
+   the launcher's host µs a call;
 4. reduced engines: reduced granite-3-2b and reduced xlstm-350m at float32
    served on the GPU (the kernels) and on the CPU (the plain versions)
    under three schedulers with a pool small enough to force swaps;
@@ -351,6 +357,19 @@ ZOO_SHAPES = {
 }
 #: h2o-danube-1.8b's windowed prefill: B, S (past the window), window
 H2O_PREFILL = dict(b=2, s=4608, window=4096)
+#: the benchmark cells' paged decode calls: name -> (B slots, q heads, kv
+#: heads, hd, cache rows), over ragged lengths (``serving_lengths``)
+PAGED_SERVING = {
+    "h2o-danube-1.8b closed": (256, 32, 8, 80, 1024),
+    "granite-3-2b open": (64, 32, 8, 64, 2048),
+}
+#: the seed of those lengths: about 400 tokens on average (a request's
+#: ~350 prompt tokens and its output so far), 1 to 1,007 (the mix's
+#: longest request)
+PAGED_SERVING_SEED = 36
+#: the closed benchmark cell's traffic, whose engine settings phase 3's
+#: profiled decode window serves at
+CLOSED_TRAFFIC = ROOT / "bench" / "traffic" / "agents-closed.json"
 #: the JAX engine's runs that phase 7 is held to, made on the CPU at
 #: reduced width by scripts/record_jax_api_runs.py (tests/test_torch_api.py
 #: regenerates it and requires it unchanged)
@@ -592,14 +611,35 @@ def _sdpa(q, k, v, **kw):
 # ------------------------------------------------------------------ phase 3
 
 
-def check_paged(ops, ref, torch, gen, split_plan, decode_page) -> dict:
+def serving_lengths(torch, b: int):
+    """``b`` ragged decode lengths on the card, seeded by
+    ``PAGED_SERVING_SEED``: normal around 400 (sd 200), clipped to 1 ..
+    1,007."""
+    g = torch.Generator().manual_seed(PAGED_SERVING_SEED)
+    lens = torch.normal(400.0, 200.0, (b,), generator=g).round()
+    return lens.clamp(1, 1007).to(torch.int32).cuda()
+
+
+def _lengths_note(lens) -> str:
+    """The lengths of a paged case, summarised past 16 of them."""
+    if lens.numel() <= 16:
+        return str(lens.tolist())
+    x = lens.float()
+    return (f"{lens.numel()} ragged, mean {x.mean().item():.1f}, "
+            f"{int(lens.min())}..{int(lens.max())}")
+
+
+def check_paged(ops, ref, torch, gen, split_plan, heads_per_block,
+                decode_page) -> dict:
     """Paged decode against its plain version; returns the max |d| in
-    bfloat16 at each named shape (granite-3-2b's and ``ZOO_SHAPES``').  The
-    case with a length of 0 is held against the plain version of the split
-    walk, which floors l as the kernel and the Pallas kernel do (the plain
-    attention gives NaN there).  The slot caches of 100 and 97 rows are
-    viewed as ``Model.decode`` views them, in pages of ``decode_page(T)``
-    tokens; the zoo's slot caches hold 512 tokens in 16-token pages."""
+    bfloat16 at each named shape (granite-3-2b's, ``ZOO_SHAPES``',
+    ``FAMILY_SHAPES``' and ``PAGED_SERVING``'s).  The case with a length
+    of 0 is held against the plain version of the split walk, which floors
+    l as the kernel and the Pallas kernel do (the plain attention gives NaN
+    there).  The slot caches of 100 and 97 rows are viewed as
+    ``Model.decode`` views them, in pages of ``decode_page(T)`` tokens;
+    the zoo's slot caches hold 512 tokens in 16-token pages, the serving
+    shapes' their cell's cache over ``serving_lengths``."""
     cases = [  # generator, name, b, nh, n_kv, hd, page size, n_pages,
         #        max_pages, lengths
         (gen, "", 2, 4, 4, 64, 16, 16, 4, [1, 64]),          # MHA
@@ -621,6 +661,11 @@ def check_paged(ops, ref, torch, gen, split_plan, decode_page) -> dict:
     for arch, (b, nh, n_kv, hd, _, t) in FAMILY_SHAPES.items():
         cases.append((fam, arch, b, nh, n_kv, hd, 16, b * t // 16, t // 16,
                       None))
+    # the benchmark cells' calls: slot-contiguous tables, ragged lengths
+    serve = torch.Generator(device="cuda").manual_seed(207)
+    for name, (b, nh, n_kv, hd, t) in PAGED_SERVING.items():
+        cases.append((serve, name, b, nh, n_kv, hd, 16, b * t // 16, t // 16,
+                      "serving"))
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for gen_case, label, b, nh, n_kv, hd, bs, n_pages, mp, lengths in \
@@ -629,15 +674,19 @@ def check_paged(ops, ref, torch, gen, split_plan, decode_page) -> dict:
                             device="cuda").to(dtype)
             kp, vp = (torch.randn(n_pages, bs, n_kv, hd, generator=gen_case,
                                   device="cuda").to(dtype) for _ in range(2))
-            n_split, per = split_plan(mp, bs)
+            qpk = nh // n_kv
+            n_split = split_plan(
+                b * n_kv * -(-qpk // heads_per_block(
+                    qpk, dtype == torch.bfloat16)), mp, bs)
             if lengths == "edges":   # 0, and on and past a split boundary
-                lengths = [0, per * bs, per * bs + 1]
-            if lengths is None:   # the engine's slot-contiguous tables
+                lengths = [0, 2 * n_split * bs, 2 * n_split * bs + 1]
+            if lengths in (None, "serving"):   # slot-contiguous tables
                 tables = torch.arange(b * mp, dtype=torch.int32,
                                       device="cuda").reshape(b, mp)
-                lens = torch.randint(1, mp * bs + 1, (b,),
-                                     generator=gen_case, device="cuda",
-                                     dtype=torch.int32)
+                lens = (serving_lengths(torch, b) if lengths else
+                        torch.randint(1, mp * bs + 1, (b,),
+                                      generator=gen_case, device="cuda",
+                                      dtype=torch.int32))
             else:
                 tables = torch.randint(0, n_pages, (b, mp), generator=gen,
                                        device="cuda", dtype=torch.int32)
@@ -646,7 +695,7 @@ def check_paged(ops, ref, torch, gen, split_plan, decode_page) -> dict:
             got = ops.paged_gqa_decode(q, kp, vp, tables, lens,
                                        block_size=bs)
             qg = (q * hd ** -0.5).reshape(b, n_kv, nh // n_kv, hd)
-            if lengths is not None and 0 in lengths:
+            if isinstance(lengths, list) and 0 in lengths:
                 want = ref.paged_attention_split_ref(qg, kp, vp, tables,
                                                      lens, n_split)
             else:
@@ -656,8 +705,8 @@ def check_paged(ops, ref, torch, gen, split_plan, decode_page) -> dict:
             err = (got.float() - want.float()).abs().max().item()
             name = str(dtype).split(".")[-1]
             log(f"  paged {name:8s} {label + ': ' if label else ''}b={b} "
-                f"nh={nh} n_kv={n_kv} hd={hd} page={bs} split={n_split}x"
-                f"{per} pages lengths={lens.tolist()} max|d|={err:.3g}")
+                f"nh={nh} n_kv={n_kv} hd={hd} page={bs} split={n_split} "
+                f"lengths={_lengths_note(lens)} max|d|={err:.3g}")
             if not err <= TOL[name]:
                 raise AssertionError(f"paged decode differs by {err}")
             if label and dtype == torch.bfloat16:
@@ -779,11 +828,14 @@ def check_flash(ops, ref, torch, gen, flash_path) -> dict:
 
 
 def time_paged(ops, ref, torch, gen, t_len: int = 512, bs: int = 16,
-               shape=None):
+               shape=None, lens=None):
     """Granite decode shape: B=8 slots of ``t_len`` tokens (512: 32 pages
     of ``bs`` = 16), bf16, every slot full, one layer's call; 40 distinct
     layer caches rotate to keep L2 cold.  ``shape``: another model's
-    (B, nh, n_kv, hd, layers), at 512 tokens."""
+    (B, nh, n_kv, hd, layers), at 512 tokens.  ``lens``: the slots'
+    lengths (B,) on the card in place of full slots; the library call then
+    takes them as a boolean mask.  Also the host's enqueue of one kernel
+    call (``host_us``)."""
     b, nh, n_kv, hd = 8, GRANITE["nh"], GRANITE["n_kv"], GRANITE["hd"]
     n_sets = GRANITE["n_layers"]
     if shape is not None:
@@ -792,7 +844,11 @@ def time_paged(ops, ref, torch, gen, t_len: int = 512, bs: int = 16,
     dt = torch.bfloat16
     tables = torch.arange(b * mp, dtype=torch.int32,
                           device="cuda").reshape(b, mp)
-    lens = torch.full((b,), mp * bs, dtype=torch.int32, device="cuda")
+    full = lens is None
+    if full:
+        lens = torch.full((b,), mp * bs, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(mp * bs, device="cuda")[None]
+            < lens[:, None])[:, None, None, :]
     sets = []
     for _ in range(n_sets):
         q = torch.randn(b, nh, hd, generator=gen, device="cuda").to(dt)
@@ -809,7 +865,9 @@ def time_paged(ops, ref, torch, gen, t_len: int = 512, bs: int = 16,
     def library(q, kp, vp):
         k = kp.view(b, mp * bs, n_kv, hd).transpose(1, 2)
         v = vp.view(b, mp * bs, n_kv, hd).transpose(1, 2)
-        return _sdpa(q[:, :, None], k, v)
+        if full:
+            return _sdpa(q[:, :, None], k, v)
+        return _sdpa(q[:, :, None], k, v, attn_mask=mask)
 
     t = device_ms({"kernel": kernel, "plain": plain, "library": library},
                   sets)
@@ -818,10 +876,45 @@ def time_paged(ops, ref, torch, gen, t_len: int = 512, bs: int = 16,
                + tables.numel() * 4 + lens.numel() * 4)
     flops = 2 * 2 * n_tok * (nh // n_kv) * n_kv * hd
     bound, by = bound_ms(n_bytes, flops, "bfloat16")
+    lib = "SDPA" if full else "SDPA with a boolean length mask"
     return dict(ms=t["kernel"], plain_ms=t["plain"],
                 library_ms=t["library"], bound_ms=bound, bound_by=by,
-                shape=f"B={b} nh={nh} n_kv={n_kv} hd={hd} len={t_len} "
-                      f"page={bs} bf16")
+                host_us=host_us(torch, kernel, sets[0]),
+                shape=f"B={b} nh={nh} n_kv={n_kv} hd={hd} "
+                      f"{'len' if full else 'cache'}={t_len} page={bs} bf16"
+                      f"{'' if full else ' lengths ' + _lengths_note(lens)}"
+                      f"; library: {lib}")
+
+
+def host_us(torch, fn, args, calls: int = 200) -> float:
+    """Median host time (us) of one ``fn(*args)`` call: 11 rounds of
+    ``calls`` calls enqueued behind ``torch.cuda._sleep``, so that no call
+    waits on the device."""
+    fn(*args)
+    rounds = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50 * SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        rounds.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(rounds)
+
+
+def time_paged_serving(ops, ref, torch) -> dict:
+    """Paged decode at ``PAGED_SERVING``'s shapes, over
+    ``serving_lengths``: 4 layer caches rotate (each set is larger than
+    the L2 cache)."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(208)
+    for name, (b, nh, n_kv, hd, t) in PAGED_SERVING.items():
+        out[f"paged {name}"] = time_paged(
+            ops, ref, torch, gen, t_len=t, shape=(b, nh, n_kv, hd, 4),
+            lens=serving_lengths(torch, b))
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_flash(ops, ref, torch, gen, shape=None, n_sets: int = 8):
@@ -1152,6 +1245,9 @@ def chunked_prefill(torch, pkg, ops) -> int:
                              f"{agree:.4f} (not 1)")
     del cache, one_cache, logits, one_logits
     served = serve_chunked(torch, pkg, ops, model, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_serving_paged(torch, pkg, model, params)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1230,6 +1326,58 @@ def serve_chunked(torch, pkg, ops, model, params) -> int:
                                  f"{budget}, or a token id out of range")
     del eng
     return got["chunk_attention"]
+
+
+def profile_serving_paged(torch, pkg, model, params) -> None:
+    """``CHUNK_PREFILL``'s model through ``ServeEngine`` at the closed
+    cell's engine settings (``CLOSED_TRAFFIC``): 64 seeded agents, then
+    three profiled engine steps once decoding has begun.  The profile must
+    hold exactly n_layers x its decode steps device kernels whose name
+    contains ``paged_split_kernel`` (one launch a call, named as the
+    benchmark's ``KERNEL_NAMES`` pairs it with the call), and at least
+    one decode step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = model.cfg
+    e = json.loads(CLOSED_TRAFFIC.read_text())["engine"]
+    eng = pkg["ServeEngine"](
+        model, params,
+        pkg["make_scheduler"](e["scheduler"], float(e["pool_tokens"])),
+        pool_tokens=e["pool_tokens"], max_batch=e["max_batch"],
+        cache_len=e["cache_len"], prefill_chunk=e["prefill_chunk"],
+        max_window=e["max_window"])
+    eng.warmup()
+    agents, _ = seeded_agents(
+        pkg["EngineAgent"], pkg["InferenceSpec"], pkg["agent_cost"], 36, 64,
+        (256, 601), (40, 81), cfg.vocab)
+    for a in agents:
+        eng.submit_agent(a)
+    for _ in range(100):
+        if eng.metrics["decode_steps"]:
+            break
+        eng.step()
+    torch.cuda.synchronize()
+    before = eng.metrics["decode_steps"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+    steps = eng.metrics["decode_steps"] - before
+    names = [ev.name() for ev in prof.profiler.kineto_results.events()
+             if str(ev.device_type()).endswith("CUDA")]
+    paged = sum("paged_split_kernel" in n for n in names)
+    kinds = sorted({n.split("<")[0][:80] for n in names
+                    if "paged_split_kernel" in n})
+    log(f"  {cfg.name} through ServeEngine at the closed cell's engine "
+        f"({e}): three profiled steps of {steps} decode steps hold {paged} "
+        f"paged_split_kernel kernels (n_layers x steps = "
+        f"{cfg.n_layers * steps}: {paged == cfg.n_layers * steps}), named "
+        f"{kinds}")
+    if not steps or paged != cfg.n_layers * steps:
+        raise AssertionError(f"profiled decode window: {paged} paged "
+                             f"kernels over {steps} decode steps of "
+                             f"{cfg.n_layers} layers")
+    del eng
 
 
 def glue_counts(ops) -> dict:
@@ -1653,6 +1801,8 @@ def log_timing(name: str, t: dict) -> None:
            else f"{t['library_ms']:.4f} ms")
     floor = ("" if t.get("floor_ms") is None
              else f", launch floor of its grids {t['floor_ms']:.4f} ms")
+    if t.get("host_us") is not None:
+        floor += f", host {t['host_us']:.1f} us a call"
     log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, library call {lib}, bound "
         f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
@@ -4004,7 +4154,8 @@ def run_baseline(torch, pkg, ops, ref, tree: Path) -> int:
     log_timing("paged_attention", time_paged(ops, ref, torch, gen))
     log_timing("flash_attention", time_flash(ops, ref, torch, gen))
     for name, t in {**time_zoo(ops, ref, torch),
-                    **time_families(ops, ref, torch)}.items():
+                    **time_families(ops, ref, torch),
+                    **time_paged_serving(ops, ref, torch)}.items():
         log_timing(name, t)
     for s_len in (XLSTM["s"], 256):
         log_timing("mlstm_chunk", time_mlstm(ops, ref, torch, gen, s_len))
@@ -4079,7 +4230,10 @@ def main(argv: list) -> int:
     from repro_torch.kernels.flash_attention import flash_path
     from repro_torch.kernels.flash_attention import smem_bytes as flash_smem
     from repro_torch.kernels.paged_attention import smem_bytes as paged_smem
-    from repro_torch.kernels.paged_attention import split_plan
+    from repro_torch.kernels.paged_attention import (
+        heads_per_block,
+        split_plan,
+    )
     from repro_torch.models.transformer import decode_page
 
     pkg["ReferenceServeEngine"] = ReferenceServeEngine
@@ -4123,7 +4277,8 @@ def main(argv: list) -> int:
     qpk = g["nh"] // g["n_kv"]
     log(f"  dynamic shared memory per block: paged_attention "
         f"{paged_smem(qpk, g['hd'])} bytes (qpk {qpk}, hd {g['hd']}; "
-        f"{split_plan(512 // 16)[0]} blocks per slot and kv head), "
+        f"{split_plan(8 * g['n_kv'], 512 // 16)} blocks per slot and kv "
+        f"head at B 8 x 512), "
         f"flash_attention {flash_smem(g['hd'], path='tensor_core', qpk=qpk)}"
         f" bytes (tensor_core, hd {g['hd']}, qpk {qpk}) and "
         f"{flash_smem(g['hd'])} bytes (cuda_core), "
@@ -4142,7 +4297,8 @@ def main(argv: list) -> int:
     err = {name: max(errs["granite-3-2b"], errs["llama2-7b"])
            for name, errs in (
                ("paged_attention", check_paged(ops, ref, torch, gen,
-                                               split_plan, decode_page)),
+                                               split_plan, heads_per_block,
+                                               decode_page)),
                ("flash_attention", check_flash(ops, ref, torch, gen,
                                                flash_path)))}
     err["chunk_attention"] = max(
@@ -4166,6 +4322,8 @@ def main(argv: list) -> int:
     for name, t in time_zoo(ops, ref, torch).items():
         log_timing(name, t)
     for name, t in time_families(ops, ref, torch).items():
+        log_timing(name, t)
+    for name, t in time_paged_serving(ops, ref, torch).items():
         log_timing(name, t)
     for arch, c in CHUNK_SHAPES.items():
         for offset in c["offsets"]:

@@ -2,11 +2,14 @@
 
 The CUDA counterpart of the JAX package's Pallas ``paged_attention``: one
 query token per sequence attends to its KV pages with an online softmax.
-The kernel splits each sequence's page walk over a cluster of blocks
-(``split_plan``) and merges their partial softmax states in the same
-launch.  This module only checks the arguments, plans the split and
-launches; ``ops.paged_gqa_decode`` is the public wrapper, which takes the
-plain version for CPU tensors and counts launches.
+Each (sequence, kv head, group of q heads) runs on ``n_split`` blocks of
+one cluster (``split_plan``, from the shapes alone), which merge their
+partial softmax states in the same launch.  In bf16 the blocks share the
+live tokens only, in 16-token tiles dealt in turn (``split_tiles``);
+float32 splits the table's width.  This module only checks the
+arguments, plans the split and launches; ``ops.paged_gqa_decode`` is the
+public wrapper, which takes the plain version for CPU tensors and counts
+launches.
 
 Layouts (as the Pallas kernel's):
 
@@ -22,6 +25,7 @@ Layouts (as the Pallas kernel's):
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -29,49 +33,90 @@ import torch
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 SYMBOL = "paged_attention_launch"
 ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int])
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int])
 #: blocks of one cluster at most (the portable cluster size)
 MAX_SPLIT = 8
-#: tokens a block walks at least, before the walk is split further (8 pages
-#: of 16 tokens measured faster than 4 at granite-3-2b's decode on an H100:
-#: half the blocks and partials to merge for a second round of loads in
-#: each block; PERF.md).  Counted in tokens, so that a table of smaller
-#: pages splits as the same work in 16-token pages would.
-MIN_TOKENS_PER_SPLIT = 128
-#: q heads one block serves at most (more are split over clusters)
-MAX_HEADS = 4
-#: threads of a block
+#: tokens of the table's width a block covers at least, before the walk is
+#: split further: a 16-token tile for each of its four warps.  Counted in
+#: tokens, so that a table of smaller pages splits as the same work in
+#: 16-token pages would.
+MIN_TOKENS_PER_SPLIT = 64
+#: blocks an SM the split fills at most: a walk is split only while the
+#: blocks fit this many on each SM (forced splits of 1 to 8 measured best
+#: at about two blocks an SM at every phase-3 shape on an H100; PERF.md)
+BLOCKS_PER_SM = 2
+#: SMs of an H100 SXM, the planner's default
+H100_SMS = 132
+#: q heads one block serves at most (more are split over blocks): the bf16
+#: kernel's mma has 8 columns, the float32 kernel keeps 4 heads' partials
+MAX_HEADS = {True: 8, False: 4}
+#: threads of a block (four warps in both kernels)
 THREADS = 128
+#: the bf16 kernel: tiles in each warp's ring, tokens a tile
+STAGES = 2
+TILE = 16
 
 
-def split_plan(max_pages: int, block_size: int = 16) -> tuple[int, int]:
-    """``(n_split, pages_per_split)``: the blocks of one cluster and the
-    contiguous pages each walks, from the block table's width and page size
-    alone (never from the lengths on the device, so the wrapper never
-    synchronises).  Every page of ``max_pages`` is covered exactly once,
-    ``n_split`` is at most ``MAX_SPLIT``, each block walks at least
-    ``MIN_TOKENS_PER_SPLIT`` tokens where there are that many, and no
-    block's range lies wholly past the table."""
-    if max_pages < 1 or block_size < 1:
-        raise ValueError(f"max_pages {max_pages} and block_size "
-                         f"{block_size} must be at least 1")
-    n_split = min(MAX_SPLIT,
-                  -(-max_pages * block_size // MIN_TOKENS_PER_SPLIT))
-    per = -(-max_pages // n_split)
-    return -(-max_pages // per), per
+def split_plan(groups: int, max_pages: int, block_size: int = 16,
+               n_sm: int = H100_SMS) -> int:
+    """``n_split``: the blocks of one cluster that share the walk of each
+    of ``groups`` (sequence, kv head, head group) triples, from shapes
+    alone (never the lengths on the device, so the wrapper never
+    synchronises): as many as ``BLOCKS_PER_SM`` blocks on each of ``n_sm``
+    SMs hold, each covering at least ``MIN_TOKENS_PER_SPLIT`` tokens of the
+    table's width, at least 1 and at most ``MAX_SPLIT``.  A wide batch
+    does not split; a small one with long tables splits to a full
+    cluster."""
+    if groups < 1 or max_pages < 1 or block_size < 1 or n_sm < 1:
+        raise ValueError(f"groups {groups}, max_pages {max_pages}, "
+                         f"block_size {block_size} and n_sm {n_sm} must be "
+                         "at least 1")
+    by_width = -(-max_pages * block_size // MIN_TOKENS_PER_SPLIT)
+    by_fill = BLOCKS_PER_SM * n_sm // groups
+    return max(1, min(MAX_SPLIT, by_width, by_fill))
 
 
-def heads_per_block(qpk: int) -> int:
-    """q heads of one block: the next power of two at or above qpk, at
-    most ``MAX_HEADS``."""
-    return 1 if qpk == 1 else 2 if qpk == 2 else MAX_HEADS
+def split_tiles(length: int, n_split: int) -> list[list[tuple[int, int]]]:
+    """The token ranges ``[t0, t1)`` each of the ``n_split`` blocks of the
+    bf16 kernel walks for a sequence of ``length`` live tokens: the
+    ``TILE``-token tiles below the length, tile g to block g % n_split,
+    the last one clipped at the length."""
+    return [[(t, min(t + TILE, length))
+             for t in range(r * TILE, length, n_split * TILE)]
+            for r in range(n_split)]
 
 
-def smem_bytes(qpk: int, hd: int) -> int:
-    """Dynamic shared memory of one block, as the source sizes it: each
-    warp's partial and the block's merged one (hd accumulators, m and l,
-    in f32), for ``heads_per_block(qpk)`` q heads."""
-    return 4 * (THREADS // 32 + 1) * heads_per_block(qpk) * (hd + 2)
+def heads_per_block(qpk: int, bf16: bool = True) -> int:
+    """q heads of one block: bf16 up to ``MAX_HEADS[True]`` (the mma's
+    columns, whatever qpk), float32 the next power of two at or above qpk,
+    at most ``MAX_HEADS[False]``."""
+    if bf16:
+        return min(qpk, MAX_HEADS[True])
+    qt = 1
+    while qt < min(qpk, MAX_HEADS[False]):
+        qt *= 2
+    return qt
+
+
+def smem_bytes(qpk: int, hd: int, bf16: bool = True) -> int:
+    """Dynamic shared memory of one block, as the source sizes it.  bf16:
+    each warp's ring of ``STAGES`` tiles of ``TILE`` K and V rows (hd
+    elements and 16 bytes of padding each) and its p tile (8 heads of 24
+    floats), and the block's merged partial for 8 heads (f32).  float32:
+    each warp's partial and the block's merged one (hd accumulators, m and
+    l) for ``heads_per_block(qpk, False)`` heads."""
+    warps = THREADS // 32
+    if not bf16:
+        return 4 * (warps + 1) * heads_per_block(qpk, False) * (hd + 2)
+    heads = MAX_HEADS[True]
+    return (warps * STAGES * 2 * TILE * (2 * hd + 16)
+            + 4 * warps * heads * 24 + 4 * heads * (hd + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_float_inputs(name: str, hd: int, *tensors) -> int:
@@ -118,13 +163,14 @@ def paged_attention(fn, q, k_pages, v_pages, block_tables, lengths, *,
             raise ValueError("paged_attention: block_tables (B, max_pages) "
                              "and lengths (B,) must be int32 on q's device")
     max_pages = block_tables.shape[1]
-    n_split, per = split_plan(max_pages, bs)
+    groups = b * n_kv * -(-qpk // heads_per_block(qpk, bool(is_bf16)))
+    n_split = split_plan(groups, max_pages, bs, sm_count(q.device.index))
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
              b, n_kv, qpk, hd, n_pages, bs, max_pages, is_bf16,
              torch.cuda.current_stream(q.device).cuda_stream, float(scale),
-             n_split, per)
+             n_split)
     if err:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")
     return out

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.paged_attention import split_tiles
 from repro_torch.launch.op_analysis import expand, loop_weights, repeated
 
 
@@ -41,35 +42,37 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
 
 def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths,
                               n_split: int):
-    """What the split CUDA kernel computes, in plain PyTorch: the block
-    table's pages cut into ``n_split`` contiguous ranges of
-    ``ceil(max_pages / n_split)`` pages, a partial softmax state
-    (m, l, acc) per range over its unmasked tokens (an empty range gives
-    m = -inf, l = 0), and their merge, floored at l = 1e-30 (so length 0
-    gives 0).  Same arguments and result as ``paged_attention_ref``."""
+    """What the split bf16 CUDA kernel computes, in plain PyTorch: each
+    sequence's live tokens cut into 16-token tiles, tile g to block g %
+    ``n_split`` (``split_tiles``), a partial softmax state
+    (m, l, acc) per block over its tiles (a block with none gives m =
+    -inf, l = 0), and their merge, floored at l = 1e-30 (so length 0 gives
+    0).  Same arguments and result as ``paged_attention_ref``."""
     b, n_kv, qpk, hd = q.shape
     max_pages = block_tables.shape[1]
     bs = k_pages.shape[1]
-    per = -(-max_pages // n_split)
     tables = torch.clamp(block_tables.long(), 0, k_pages.shape[0] - 1)
     k = k_pages[tables].reshape(b, max_pages * bs, n_kv, hd).float()
     v = v_pages[tables].reshape(b, max_pages * bs, n_kv, hd).float()
+    s_all = torch.einsum("bngh,btnh->bngt", q.float(), k)
+    # block r's tokens: its tiles of each row's live tokens
+    mine = torch.zeros((n_split, b, max_pages * bs), dtype=torch.bool)
+    for row, length in enumerate(lengths.tolist()):
+        length = min(max(length, 0), max_pages * bs)
+        for r, tiles in enumerate(split_tiles(length, n_split)):
+            for t0, t1 in tiles:
+                mine[r, row, t0:t1] = True
+    mine = mine.to(q.device)
     neg_inf = torch.full((), -torch.inf, device=q.device)
     m = torch.full((b, n_kv, qpk), -torch.inf, device=q.device)
     l = torch.zeros((b, n_kv, qpk), device=q.device)
     acc = torch.zeros((b, n_kv, qpk, hd), device=q.device)
     for r in range(n_split):
-        t0, t1 = r * per * bs, min((r + 1) * per, max_pages) * bs
-        if t0 >= t1:
-            continue
-        s = torch.einsum("bngh,btnh->bngt", q.float(), k[:, t0:t1])
-        ids = torch.arange(t0, t1, device=q.device)[None]
-        s = torch.where((ids < lengths[:, None])[:, None, None, :], s,
-                        neg_inf)
+        s = torch.where(mine[r, :, None, None, :], s_all, neg_inf)
         m_r = s.amax(dim=-1)
         p = torch.exp(s - torch.where(m_r == -torch.inf, 0.0, m_r)[..., None])
         l_r = p.sum(dim=-1)
-        acc_r = torch.einsum("bngt,btnh->bngh", p, v[:, t0:t1])
+        acc_r = torch.einsum("bngt,btnh->bngh", p, v)
         m_new = torch.maximum(m, m_r)
         use = torch.where(m_new == -torch.inf, 0.0, m_new)
         a, c = torch.exp(m - use), torch.exp(m_r - use)

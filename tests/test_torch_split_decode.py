@@ -1,10 +1,16 @@
 """The redesigned attention kernels' rules, on the CPU.
 
-* ``ref.paged_attention_split_ref`` computes what the split paged-decode
-  kernel computes (partial softmax states over contiguous page ranges,
-  merged); it is held against the Pallas kernel in interpret mode and
-  against ``paged_attention_ref``;
-* ``split_plan`` covers every page once with at most 8 blocks;
+* ``ref.paged_attention_split_ref`` computes what the split bf16
+  paged-decode kernel computes (partial softmax states over each
+  sequence's live tokens, dealt in 16-token tiles by ``split_tiles``,
+  merged); it is held
+  against the Pallas kernel in interpret mode and against
+  ``paged_attention_ref`` at lengths 0 and 1, on and past page and split
+  boundaries, stale ragged rows, pages of 1, 10, 16 and 32 tokens, qpk 1,
+  2, 4 and 7 and hd 64, 80, 128 and 256;
+* ``split_plan`` takes the split from the shapes (blocks against the SMs,
+  the table's width), at most 8, and ``split_tiles`` covers every live
+  token once;
 * ``flash_path`` picks the tensor-core kernel exactly for bf16 at hd 32,
   64, 80 or 128 with S a multiple of 64;
 * both new designs' shared memory fits a Hopper block for every head dim
@@ -30,9 +36,13 @@ from repro_torch.kernels.flash_attention import flash_path
 from repro_torch.kernels.flash_attention import smem_bytes as flash_smem
 from repro_torch.kernels.flash_attention import tc_heads
 from repro_torch.kernels.paged_attention import (
+    BLOCKS_PER_SM,
+    H100_SMS,
     MAX_SPLIT,
     MIN_TOKENS_PER_SPLIT,
+    heads_per_block,
     split_plan,
+    split_tiles,
 )
 from repro_torch.kernels.paged_attention import smem_bytes as paged_smem
 from repro_torch.models import Model
@@ -85,10 +95,11 @@ def _split_vs_pallas(q, kp, vp, tables, lengths, bs, n_split):
 def test_split_ref_matches_pallas_and_plain(b, nh, nkv, hd, bs, pages,
                                             max_pages):
     """The sweep of ``tests/test_kernels.py``, at the planner's split and
-    at every split up to ``max_pages`` ranges."""
+    at every split up to ``max_pages`` blocks."""
     lengths = np.linspace(1, max_pages * bs, b).astype(np.int32)
     inputs = _split_inputs(0, b, nh, nkv, hd, bs, pages, max_pages, lengths)
-    n_plan, _ = split_plan(max_pages)
+    groups = b * nkv * -(-(nh // nkv) // heads_per_block(nh // nkv))
+    n_plan = split_plan(groups, max_pages, bs)
     for n_split in sorted({n_plan, *range(1, max_pages + 1)}):
         qg, kpt, vpt, tt, lt, got = _split_vs_pallas(*inputs, bs, n_split)
         plain = ref.paged_attention_ref(qg, kpt, vpt, tt, lt)
@@ -98,14 +109,19 @@ def test_split_ref_matches_pallas_and_plain(b, nh, nkv, hd, bs, pages,
 @pytest.mark.parametrize(
     "lengths,what",
     [
-        ([1, 2, 3], "length 1 and later ranges empty"),
+        ([1, 2, 3], "length 1 and later blocks empty"),
         ([64, 128, 65], "lengths on and just past a split boundary"),
         ([0, 16, 320], "length 0 gives 0"),
-        ([319, 17, 4], "short sequences: most ranges empty"),
+        ([319, 17, 4], "short sequences: most blocks empty"),
+        ([15, 16, 17], "on and past a page (and tile) boundary"),
+        ([80, 81, 96], "5 live tiles, one a block; 6, block 0 two"),
+        ([0, 0, 1], "two empty sequences beside one token"),
+        ([160, 161, 319], "10 tiles, two a block; 11, block 0 three"),
     ],
 )
 def test_split_ref_length_edges(lengths, what):
-    """20 pages of 16 tokens split into 5 ranges of 4 pages (64 tokens)."""
+    """20 pages of 16 tokens, each sequence's live 16-token tiles dealt
+    over 5 blocks."""
     b, nh, nkv, hd, bs, pages, mp = 3, 8, 2, 64, 16, 64, 20
     inputs = _split_inputs(1, b, nh, nkv, hd, bs, pages, mp, lengths)
     qg, kpt, vpt, tt, lt, got = _split_vs_pallas(*inputs, bs, 5)
@@ -117,41 +133,111 @@ def test_split_ref_length_edges(lengths, what):
                                **TOL)
 
 
+@pytest.mark.parametrize("bs,qpk,hd", [
+    (bs, qpk, (64, 80, 128, 256)[(i + j) % 4])
+    for i, bs in enumerate((1, 10, 16, 32))
+    for j, qpk in enumerate((1, 2, 4, 7))
+])
+def test_split_ref_over_pages_heads_and_dims(bs, qpk, hd):
+    """Pages of 1, 10, 16 and 32 tokens, qpk 1, 2, 4 and 7, each head dim
+    of 64, 80, 128 and 256 at every page size and every qpk: ragged rows
+    with stale lengths (a free slot's last length, its table's pages
+    shuffled over the pool), lengths 0 and 1 among them, at the planner's
+    split of a small batch and at 3 blocks."""
+    nkv, max_pages = 2, max(2, 96 // bs)
+    t = max_pages * bs
+    lengths = [0, 1, bs, bs + 1, t // 2 + 3, t]
+    b = len(lengths)
+    inputs = _split_inputs(2 + bs + qpk, b, nkv * qpk, nkv, hd, bs,
+                           b * max_pages, max_pages, lengths)
+    n_plan = split_plan(b * nkv, max_pages, bs)
+    for n_split in sorted({n_plan, 3}):
+        qg, kpt, vpt, tt, lt, got = _split_vs_pallas(*inputs, bs, n_split)
+        zero = lt == 0
+        assert not got[zero].any()
+        plain = ref.paged_attention_ref(qg, kpt, vpt, tt, lt)
+        np.testing.assert_allclose(got[~zero].numpy(),
+                                   plain[~zero].numpy(), **TOL)
+
+
 @pytest.mark.parametrize("max_pages", [1, 2, 3, 4, 5, 7, 8, 20, 31, 32, 33,
                                        64, 100, 257, 2048])
 def test_split_plan_covers_every_page_once(max_pages):
-    n_split, per = split_plan(max_pages)
+    """At granite's decode batch (64 groups) and 16-token pages: for every
+    length up to the table's width, the plan's blocks walk whole pages (a
+    tile each) in order, cover ``[0, length)`` once between them, and no
+    block walks more than ``ceil(live tiles / n_split)`` of them."""
+    n_split = split_plan(64, max_pages)
     assert 1 <= n_split <= MAX_SPLIT
-    covered = [p for r in range(n_split)
-               for p in range(r * per, min((r + 1) * per, max_pages))]
-    assert covered == list(range(max_pages))
-    # no block's range lies wholly past the table
-    assert (n_split - 1) * per < max_pages
+    width = max_pages * 16
+    for length in sorted({*range(0, width + 1, max(1, width // 600)),
+                          width}):
+        blocks = split_tiles(length, n_split)
+        assert len(blocks) == n_split
+        covered = sorted(t for tiles in blocks for t0, t1 in tiles
+                         for t in range(t0, t1))
+        assert covered == list(range(length))
+        live = -(-length // 16)
+        for tiles in blocks:
+            assert len(tiles) <= -(-live // n_split)
+            for t0, t1 in tiles:
+                assert t0 % 16 == 0 and t0 < t1 <= min(t0 + 16, length)
 
 
 @pytest.mark.parametrize("max_pages,bs,plan", [
-    (32, 16, (4, 8)),     # cache 512 in 16-token pages: 8 pages a block
-    (6, 16, (1, 6)),      # cache 96: one block
-    (64, 16, (8, 8)),
-    (10, 10, (1, 10)),    # cache 100 in 10-token pages: 100 tokens, one
-    (97, 1, (1, 97)),     # cache 97 in 1-token pages: one block
-    (100, 10, (8, 13)),   # cache 1000: 8 blocks of 130 tokens
-    (256, 1, (2, 128)),   # 128 one-token pages a block, as 8 pages of 16
+    (32, 16, 8),     # cache 512 in 16-token pages: 4 pages a block
+    (6, 16, 2),      # cache 96: two blocks
+    (4, 16, 1),      # cache 64: one block
+    (10, 10, 2),     # cache 100 in 10-token pages: 100 tokens, two
+    (97, 1, 2),      # cache 97 in 1-token pages: two blocks
+    (100, 10, 8),    # cache 1000: 8 blocks
+    (256, 1, 4),     # 64 one-token pages a block, as 4 pages of 16
 ])
 def test_split_plan_counts_tokens(max_pages, bs, plan):
-    """Blocks walk at least ``MIN_TOKENS_PER_SPLIT`` tokens whatever the
-    page size, so that a cache viewed in smaller pages splits as the same
-    tokens in 16-token pages do; at 16 tokens a page that is 8 pages."""
-    assert split_plan(max_pages, bs) == plan
-    assert MIN_TOKENS_PER_SPLIT == 8 * 16
+    """At one slot of 8 kv heads (8 groups: up to 33 blocks a group fill
+    the card) the table's width bounds the split: blocks cover at least
+    ``MIN_TOKENS_PER_SPLIT`` tokens of it whatever the page size, so that
+    a cache viewed in smaller pages splits as the same tokens in 16-token
+    pages do; that is a 16-token tile for each of a block's four warps."""
+    assert split_plan(8, max_pages, bs) == plan
+    assert MIN_TOKENS_PER_SPLIT == 4 * 16
 
 
 def test_split_plan_at_granite_decode():
-    """cache_len 512 in 16-token pages: 4 blocks of 8 pages per (slot, kv
-    head), 8 x 8 x 4 = 256 blocks at max_batch 8."""
+    """cache_len 512 in 16-token pages: 4 blocks per (slot, kv head), 8 x 8
+    x 4 = 256 blocks at max_batch 8, two on each SM."""
     cfg = get_config("granite-3-2b")
-    assert split_plan(512 // transformer.DECODE_PAGE) == (4, 8)
-    assert 8 * cfg.n_kv_heads * split_plan(32)[0] == 256
+    groups = 8 * cfg.n_kv_heads
+    assert split_plan(groups, 512 // transformer.DECODE_PAGE) == 4
+    assert groups * split_plan(groups, 32) == 256
+
+
+@pytest.mark.parametrize("b,n_kv,qpk,cache,plan", [
+    (256, 8, 4, 1024, 1),   # the closed cell: 2,048 blocks
+    (64, 8, 4, 2048, 1),    # the open cell: 512 blocks
+    (8, 32, 1, 512, 1),     # llama2-7b's decode at B 8: 256 groups
+    (4, 32, 1, 1024, 2),    # zamba2-2.7b's at B 4: 128 groups
+    (4, 8, 4, 512, 8),      # h2o-danube-1.8b's at B 4: 32 groups
+    (2, 8, 7, 3136, 8),     # llava-next-34b: 16 groups of 8 heads
+])
+def test_split_plan_at_the_cells(b, n_kv, qpk, cache, plan):
+    """Wide batches fill the card unsplit; small ones split while
+    ``BLOCKS_PER_SM`` blocks on each of 132 SMs hold them, up to a full
+    cluster."""
+    groups = b * n_kv * -(-qpk // heads_per_block(qpk))
+    assert split_plan(groups, cache // 16) == plan
+
+
+@pytest.mark.parametrize("qpk,bf16,heads", [
+    (1, True, 1), (2, True, 2), (3, True, 3), (4, True, 4), (5, True, 5),
+    (7, True, 7), (9, True, 8), (1, False, 1), (2, False, 2),
+    (3, False, 4), (7, False, 4),
+])
+def test_heads_per_block(qpk, bf16, heads):
+    """The bf16 kernel's mma serves up to 8 q heads a block (llava's qpk 7
+    in one block, starcoder2's 9 in two); the float32 kernel up to 4, in
+    powers of two."""
+    assert heads_per_block(qpk, bf16) == heads
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -192,10 +278,15 @@ def test_flash_smem_fits_a_block(hd, qpk):
             1024 + 2 * (heads + 4) * 10_240 + 96)
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("qpk", [1, 2, 4, 8])
 def test_paged_smem_fits_a_block(hd, qpk):
-    assert 0 < paged_smem(qpk, hd) <= BLOCK_SMEM
+    """Both kernels' blocks fit; the bf16 ring keeps three blocks on an SM
+    at the cells' hd 64 and 80 (228 KB an SM, 1 KB of it each block's)."""
+    for bf16 in (True, False):
+        assert 0 < paged_smem(qpk, hd, bf16) <= BLOCK_SMEM
+    if hd in (64, 80):
+        assert 3 * (paged_smem(qpk, hd) + 1024) <= 228 * 1024
 
 
 def test_decode_builds_the_page_table_once_per_step(monkeypatch):
@@ -253,7 +344,8 @@ def test_decode_pages_at_any_cache_len(monkeypatch, t, bs):
     the slot cache as ``T/bs`` whole pages of ``bs`` tokens, the table
     ``arange(B*T/bs)`` and lengths ``pos + 1`` (for a multiple of 16,
     exactly the 16-token pages of before), one launch per layer; the split
-    plan takes the page count by the rule of every cache length."""
+    plan takes the page count by the rule of every cache length, and its
+    blocks' tiles cover each slot's live tokens."""
     cfg = get_config("granite-3-2b").reduced(n_layers=2)
     model = Model(cfg, device="cpu", debug_checks=True)
     params = model.init(seed=0)
@@ -281,9 +373,14 @@ def test_decode_pages_at_any_cache_len(monkeypatch, t, bs):
         assert torch.equal(tables, torch.arange(
             b * n_pages, dtype=torch.int32).view(b, n_pages))
         assert torch.equal(lengths, pos + 1)
-    n_split, per = split_plan(n_pages, bs)
-    assert n_split == min(MAX_SPLIT, -(-t // MIN_TOKENS_PER_SPLIT))
-    assert (n_split - 1) * per < n_pages <= n_split * per
+    groups = b * cfg.n_kv_heads
+    n_split = split_plan(groups, n_pages, bs)
+    assert n_split == max(1, min(MAX_SPLIT, -(-t // MIN_TOKENS_PER_SPLIT),
+                                 BLOCKS_PER_SM * H100_SMS // groups))
+    for length in lengths.tolist():
+        blocks = split_tiles(length, n_split)
+        assert sorted(x for tiles in blocks for r in tiles
+                      for x in range(*r)) == list(range(length))
 
 
 def test_every_cache_len_views_as_whole_pages():
